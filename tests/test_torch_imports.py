@@ -1,0 +1,60 @@
+"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
+imports JAX, Triton or any module of the JAX package ``repro``."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+FORBIDDEN_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|triton|repro)(?:\.|\s|,|$)",
+    re.MULTILINE,
+)
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "triton", "repro"))
+print(json.dumps({"modules": names, "forbidden": bad}))
+"""
+
+
+def test_every_port_module_imports_without_jax_triton_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, check=True,
+                         capture_output=True, text=True, timeout=120)
+    seen = json.loads(out.stdout.strip().splitlines()[-1])
+    assert seen["forbidden"] == []
+    # every module of the slice was imported, the kernel's among them
+    for name in ("repro_torch.core.builder", "repro_torch.runtime.local",
+                 "repro_torch.kernels.mandelbrot.kernel",
+                 "repro_torch.kernels.mandelbrot.ops", "repro_torch.quickstart"):
+        assert name in seen["modules"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_source_names_no_forbidden_import(path):
+    assert FORBIDDEN_IMPORT.findall(path.read_text()) == []
+
+
+def test_forbidden_import_pattern():
+    for line in ("import jax", "import jax.numpy as jnp", "from jax import jit",
+                 "from repro.core.dsl import parse_cgpp", "import repro",
+                 "    from triton import language", "import jaxlib"):
+        assert FORBIDDEN_IMPORT.search(line), line
+    for line in ("from repro_torch.core.dsl import parse_cgpp",
+                 "import repro_torch", "import torch", "# import jax? no"):
+        assert not FORBIDDEN_IMPORT.search(line), line
