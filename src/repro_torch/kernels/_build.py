@@ -4,7 +4,8 @@ Each kernel is one ``.cu`` file with a plain C entry point.  ``nvcc``
 compiles it into a shared library under ``build/repro_torch/`` at the root
 of the checkout; the library's name carries a hash of the source and the
 flags, so an edited source builds anew and an unchanged one loads at once.
-Nothing is built when a module is imported.
+Nothing is built when a module is imported.  Different sources build in
+parallel when several threads load them at once.
 """
 
 from __future__ import annotations
@@ -20,14 +21,13 @@ from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-# -fmad=false: no contraction beyond what a source spells out (the
-# Mandelbrot kernel's rounding must equal the reference's bit for bit).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
+_locks: dict[Path, threading.Lock] = {}
+_locks_guard = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -37,13 +37,20 @@ def nvcc_path() -> str:
     return found
 
 
-def load_library(source: Path) -> ctypes.CDLL:
-    """Compile ``source`` (once per content and flags) and load it."""
-    with _lock:
-        digest = hashlib.sha256(
-            source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        target = BUILD_DIR / f"lib{source.stem}-{digest}.so"
+def library_path(source: Path, flags: tuple[str, ...] = ()) -> Path:
+    """Where ``source`` built with ``flags`` (beside ``NVCC_FLAGS``) lives."""
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS + flags).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+
+
+def load_library(source: Path, flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Compile ``source`` with ``flags`` (once per content and flags), load it."""
+    target = library_path(source, flags)
+    with _locks_guard:
+        lock = _locks.setdefault(target, threading.Lock())
+    with lock:
         if not target.exists():
             nvcc = nvcc_path()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -53,7 +60,7 @@ def load_library(source: Path) -> ctypes.CDLL:
             os.close(fd)
             try:
                 proc = subprocess.run(
-                    [nvcc, *NVCC_FLAGS, "-o", tmp, str(source)],
+                    [nvcc, *NVCC_FLAGS, *flags, "-o", tmp, str(source)],
                     capture_output=True, text=True,
                 )
                 if proc.returncode != 0:

@@ -1,0 +1,92 @@
+"""Parameter plumbing: the JAX package's :class:`ParamSpec` trees.
+
+Models declare their parameters as trees of :class:`ParamSpec` (shape,
+logical axes, initializer), and ``init_params`` materialises one.  The
+logical axes are kept so that the trees equal the JAX package's; the port
+does not shard them yet.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Mapping
+
+import torch
+
+from repro_torch.device import resolve_device
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    logical_axes: tuple[str | None, ...]
+    init: str = "normal"  # normal | zeros
+    stddev: float = 0.02
+
+    def __post_init__(self) -> None:
+        if len(self.shape) != len(self.logical_axes):
+            raise ValueError(
+                f"ParamSpec rank mismatch: {self.shape} vs {self.logical_axes}"
+            )
+
+
+def fan_in_normal(shape: tuple[int, ...], fan_axis: int = -2) -> float:
+    """1/sqrt(fan_in) stddev for weight matrices."""
+    if len(shape) < 2:
+        return 0.02
+    return 1.0 / math.sqrt(shape[fan_axis])
+
+
+def _iter_leaves(tree: Any, prefix: str = ""):
+    if isinstance(tree, ParamSpec):
+        yield prefix, tree
+        return
+    if isinstance(tree, Mapping):
+        for k in sorted(tree):
+            yield from _iter_leaves(tree[k], f"{prefix}/{k}")
+        return
+    raise TypeError(f"unexpected node in param spec tree at {prefix}: {type(tree)}")
+
+
+def count_params(spec_tree: Any) -> int:
+    return sum(math.prod(s.shape) for _p, s in _iter_leaves(spec_tree))
+
+
+def _path_hash(path: str) -> int:
+    h = 2166136261
+    for ch in path.encode():
+        h = ((h ^ ch) * 16777619) & 0x7FFFFFFF
+    return h
+
+
+def _init_leaf(spec: ParamSpec, seed: int, path: str, device: torch.device,
+               dtype: torch.dtype) -> torch.Tensor:
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "normal":
+        gen = torch.Generator(device)
+        gen.manual_seed(seed * 2**31 + _path_hash(path))
+        out = torch.randn(spec.shape, generator=gen, dtype=dtype, device=device)
+        return out.mul_(spec.stddev)
+    raise ValueError(f"unknown init {spec.init!r}")
+
+
+def init_params(spec_tree: Any, seed: int = 0, device=None,
+                dtype: torch.dtype = torch.float32) -> Any:
+    """Materialise a parameter tree on ``device`` (default: the card).
+
+    Each leaf is drawn in ``dtype`` from its own generator, seeded from
+    ``seed`` and its path, so a full-width model is made leaf by leaf on the
+    card and never as a whole float32 copy.  The numbers are not
+    ``jax.random``'s: to compute what the JAX package computes, carry its
+    parameters across with ``models.convert.params_from_numpy``.
+    """
+    dev = resolve_device(device)
+
+    def build(tree: Any, prefix: str = "") -> Any:
+        if isinstance(tree, ParamSpec):
+            return _init_leaf(tree, seed, prefix, dev, dtype)
+        return {k: build(v, f"{prefix}/{k}") for k, v in tree.items()}
+
+    return build(spec_tree)

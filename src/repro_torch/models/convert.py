@@ -1,0 +1,31 @@
+"""Carry the JAX package's parameters into the port.
+
+The JAX package's parameter trees are nested dicts of arrays (``embed``,
+``final_norm``, ``lm_head``, ``blocks/<kind>/{ln1, wq, wk, wv, wo, ln2,
+mlp/{w_gate, w_up, w_down}}``); handed over as numpy arrays with the same
+keys, they become the port's tree of tensors.  ``jax.random`` and
+``torch.Generator`` give different numbers from one seed, so this is how
+the two packages are made to compute the same thing.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def params_from_numpy(tree: Any, device=None,
+                      dtype: torch.dtype = torch.float32) -> Any:
+    """numpy leaves -> tensors of ``dtype`` on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+
+    def build(node: Any) -> Any:
+        if isinstance(node, Mapping):
+            return {k: build(v) for k, v in node.items()}
+        return torch.from_numpy(np.array(node, copy=True)).to(dev, dtype)
+
+    return build(tree)

@@ -1,0 +1,317 @@
+"""Decoder-only language model: the dense path of the JAX package's
+``models/lm.py`` at ``tp=1``.
+
+The layer pattern of the config decides which blocks exist and in which
+order.  This port runs the attention kinds: ``attn`` (full causal),
+``local`` (sliding window, ring-buffer cache) and ``global``, each with a
+SwiGLU MLP.  The other kinds (``moe``, ``rec``, ``mlstm``, ``slstm``) raise
+``NotImplementedError``; ROADMAP queue 1 names the slice that ports them.
+
+Parameters are the JAX package's tree: per block kind, each leaf is stacked
+``[count, ...]`` over that kind's layers.  Layers run as a plain Python
+loop (no scan, no remat).  Every block calls the fused RMS norm twice
+(``ln1``, ``ln2``) and the forward ends in ``final_norm``; the prompt's
+attention goes through the flash-attention entry point.  Decode writes the
+new token's K/V into the cache in place and returns the same cache.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, padded_size
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.common import ParamSpec, fan_in_normal
+from repro_torch.models.layers import embed_tokens, lm_logits, mlp_specs, rms_norm, swiglu
+
+ATTN_KINDS = ("attn", "local", "global")
+_NOT_PORTED = {  # kind -> (blocks, the ROADMAP queue 1 item that ports them)
+    "moe": ("MoE blocks", "the other block families"),
+    "rec": ("recurrent (RG-LRU) blocks", "the recurrent block family"),
+    "mlstm": ("xLSTM blocks", "the other block families"),
+    "slstm": ("xLSTM blocks", "the other block families"),
+}
+
+
+def _check_kind(kind: str) -> None:
+    if kind in ATTN_KINDS:
+        return
+    if kind in _NOT_PORTED:
+        blocks, item = _NOT_PORTED[kind]
+        raise NotImplementedError(
+            f"layer kind {kind!r}: {blocks} are not ported yet "
+            f"(ROADMAP queue 1, '{item}')")
+    raise ValueError(f"unknown layer kind {kind!r}")
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# Head-padding policy
+# ---------------------------------------------------------------------------
+
+
+def head_plan(cfg: ModelConfig, tp: int) -> dict:
+    """Resolve the TP attention plan: padded head counts + grouping mode."""
+    H, KV, g = cfg.num_heads, cfg.num_kv_heads, cfg.q_per_kv
+    Hp = padded_size(H, tp) if tp > 1 else H
+    if KV == 1:
+        return {"Hp": Hp, "Kp": 1, "mode": "grouped"}
+    if Hp % g == 0 and Hp // g >= KV:
+        return {"Hp": Hp, "Kp": Hp // g, "mode": "grouped"}
+    return {"Hp": Hp, "Kp": KV, "mode": "expand_kv"}
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs (the JAX package's trees at tp=1)
+# ---------------------------------------------------------------------------
+
+
+def _attn_specs(cfg: ModelConfig, n: int) -> dict:
+    hp = head_plan(cfg, 1)
+    D, hd = cfg.d_model, cfg.head_dim
+    specs = {
+        "ln1": ParamSpec((n, D), ("layers", "d_model"), init="zeros"),
+        "wq": ParamSpec((n, D, hp["Hp"] * hd),
+                        ("layers", "d_model_fsdp", "d_attn"),
+                        stddev=fan_in_normal((D, 0))),
+        "wk": ParamSpec((n, D, hp["Kp"] * hd),
+                        ("layers", "d_model_fsdp", "d_kv_attn"),
+                        stddev=fan_in_normal((D, 0))),
+        "wv": ParamSpec((n, D, hp["Kp"] * hd),
+                        ("layers", "d_model_fsdp", "d_kv_attn"),
+                        stddev=fan_in_normal((D, 0))),
+        "wo": ParamSpec((n, hp["Hp"] * hd, D),
+                        ("layers", "d_attn", "d_model_fsdp"),
+                        stddev=fan_in_normal((hp["Hp"] * hd, 0), fan_axis=0)),
+    }
+    if cfg.use_qk_norm:
+        specs["q_norm"] = ParamSpec((n, hd), ("layers", None), init="zeros")
+        specs["k_norm"] = ParamSpec((n, hd), ("layers", None), init="zeros")
+    return specs
+
+
+def _block_specs(cfg: ModelConfig, kind: str, n: int) -> dict:
+    _check_kind(kind)
+    specs = _attn_specs(cfg, n)
+    if cfg.d_ff > 0:
+        specs["ln2"] = ParamSpec((n, cfg.d_model), ("layers", "d_model"),
+                                 init="zeros")
+        specs["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, n)
+    return specs
+
+
+def lm_param_specs(cfg: ModelConfig) -> dict:
+    Vp = cfg.padded_vocab(1)
+    specs: dict[str, Any] = {
+        "embed": ParamSpec((Vp, cfg.d_model), ("vocab", "d_model_fsdp"),
+                           stddev=0.02),
+        "final_norm": ParamSpec((cfg.d_model,), ("d_model",), init="zeros"),
+        "blocks": {
+            kind: _block_specs(cfg, kind, n)
+            for kind, n in cfg.layer_counts().items()
+        },
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec(
+            (cfg.d_model, Vp), ("d_model_fsdp", "vocab"),
+            stddev=fan_in_normal((cfg.d_model, Vp)),
+        )
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# Block application
+# ---------------------------------------------------------------------------
+
+
+def _attention_part(cfg, p, x, positions, *, kind, cache=None, cache_len=None,
+                    return_state=False):
+    """Shared attention sub-block. Returns (attn_out, state).
+
+    ``cache`` (decode): {"k","v"} [B, Scache, KV, hd] views into the stacked
+    cache; the new token's K/V are written into them in place.  ``cache_len``
+    is an int (every row at the same length) or a [B] tensor (a length per
+    serving slot).  ``local`` layers use a ring buffer of exactly the window
+    size: keys carry RoPE for their true positions, so slot order does not
+    matter and no window mask is needed.  ``return_state`` (prefill):
+    returns this segment's fresh {"k","v"}.
+    """
+    hp = head_plan(cfg, 1)
+    H, KV, hd = hp["Hp"], hp["Kp"], cfg.head_dim
+    B, S, _D = x.shape
+    cdt = _dtype(cfg.compute_dtype)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q = (h @ p["wq"].to(cdt)).reshape(B, S, H, hd)
+    k = (h @ p["wk"].to(cdt)).reshape(B, S, KV, hd)
+    v = (h @ p["wv"].to(cdt)).reshape(B, S, KV, hd)
+    if cfg.use_qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = attn_mod.apply_rope(q, positions, cfg.rope_theta)
+    k = attn_mod.apply_rope(k, positions, cfg.rope_theta)
+
+    state = None
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        size = ck.shape[1]
+        if isinstance(cache_len, int):
+            slot = cache_len % size if kind == "local" else cache_len
+            ck[:, slot:slot + S] = k.to(ck.dtype)
+            cv[:, slot:slot + S] = v.to(cv.dtype)
+            valid = min(cache_len + S, size)
+        else:
+            slot = cache_len % size if kind == "local" else cache_len
+            bidx = torch.arange(B, device=x.device)
+            ck[bidx, slot] = k[:, 0].to(ck.dtype)
+            cv[bidx, slot] = v[:, 0].to(cv.dtype)
+            valid = torch.clamp(cache_len + S, max=size)
+        out = attn_mod.decode_attention(q, ck, cv, valid)
+        state = cache
+    else:
+        window = cfg.window_size if kind == "local" else 0
+        out = attn_mod.attention(q, k, v, causal=True, window=window)
+        if return_state:
+            state = {"k": k, "v": v}
+    out = out.reshape(B, S, H * hd) @ p["wo"].to(cdt)
+    return out.to(x.dtype), state
+
+
+def apply_block(cfg, kind, p, x, positions, *, cache=None, cache_len=None,
+                return_state=False):
+    """One residual block of the given kind.  Returns (x, new_cache)."""
+    _check_kind(kind)
+    cdt = _dtype(cfg.compute_dtype)
+    attn_out, new_kv = _attention_part(
+        cfg, p, x, positions, kind=kind, cache=cache, cache_len=cache_len,
+        return_state=return_state,
+    )
+    x = x + attn_out
+    if cfg.d_ff > 0:
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                       p["mlp"]["w_down"], cdt).to(x.dtype)
+    return x, new_kv
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked parameter or cache tree (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _embed(cfg: ModelConfig, params, tokens):
+    x = embed_tokens(params["embed"], tokens, _dtype(cfg.compute_dtype))
+    return x * math.sqrt(cfg.d_model)
+
+
+def _layers(cfg: ModelConfig, params):
+    """(kind, layer parameters, index within the kind) in model order."""
+    counters = {k: 0 for k in cfg.layer_counts()}
+    for kind in cfg.pattern_for_layers:
+        i = counters[kind]
+        counters[kind] += 1
+        yield kind, _layer(params["blocks"][kind], i), i
+
+
+def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """Full-sequence forward to the final hidden states [B, S, D]."""
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    for kind, p, _i in _layers(cfg, params):
+        x, _state = apply_block(cfg, kind, p, x, positions)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def lm_head_weight(cfg: ModelConfig, params):
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["lm_head"]
+
+
+def logits_from_hidden(cfg, params, x):
+    return lm_logits(x, lm_head_weight(cfg, params),
+                     _dtype(cfg.compute_dtype), cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# KV cache / decode
+# ---------------------------------------------------------------------------
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_seq: int, dtype=None) -> dict:
+    """Allocation-free cache description: leaf -> (shape, dtype, logical
+    axes, fill value)."""
+    if dtype is None:
+        dtype = _dtype(cfg.compute_dtype)
+    hp = head_plan(cfg, 1)
+    kv_axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    spec: dict[str, Any] = {}
+    for kind, n in cfg.layer_counts().items():
+        _check_kind(kind)
+        # ``local`` layers ring-buffer exactly ``window`` slots: every
+        # resident token is then within the window of the current query.
+        seq = max_seq if kind != "local" else min(max_seq, cfg.window_size)
+        shp = (n, batch, seq, hp["Kp"], cfg.head_dim)
+        spec[kind] = {"k": (shp, dtype, kv_axes, 0.0),
+                      "v": (shp, dtype, kv_axes, 0.0)}
+    return spec
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+               device=None) -> dict:
+    """K/V per attention kind, stacked over that kind's layer count."""
+    dev = resolve_device(device)
+    return {
+        kind: {name: torch.full(shp, fill, dtype=dt, device=dev)
+               for name, (shp, dt, _axes, fill) in leaves.items()}
+        for kind, leaves in cache_spec(cfg, batch, max_seq, dtype).items()
+    }
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
+                cache_len):
+    """One decode step.  tokens: [B, 1]; cache_len: int, or a [B] tensor of
+    the tokens already in each row's cache.  Returns (logits [B, 1, Vp],
+    cache), the cache updated in place."""
+    x = _embed(cfg, params, tokens)
+    if isinstance(cache_len, int):
+        positions = torch.tensor([cache_len], device=tokens.device)
+    else:
+        positions = cache_len[:, None]  # [B, 1] per-slot positions
+    for kind, p, i in _layers(cfg, params):
+        x, _state = apply_block(cfg, kind, p, x, positions,
+                                cache=_layer(cache[kind], i),
+                                cache_len=cache_len)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return logits_from_hidden(cfg, params, x), cache
+
+
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int):
+    """Run the full prompt, returning (last-token logits, filled cache)."""
+    B, S = tokens.shape
+    if S > max_seq and set(cfg.layer_counts()) - {"local"}:
+        raise ValueError(f"prompt of {S} tokens exceeds max_seq {max_seq}")
+    cache = init_cache(cfg, B, max_seq, device=tokens.device)
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(S, device=tokens.device)
+    for kind, p, i in _layers(cfg, params):
+        x, st = apply_block(cfg, kind, p, x, positions, return_state=True)
+        for name in ("k", "v"):
+            dst = cache[kind][name][i]  # [B, size, KV, hd]
+            size = dst.shape[1]
+            if kind == "local":
+                nfit = min(S, size)
+                slots = torch.arange(S - nfit, S, device=tokens.device) % size
+                dst.index_copy_(1, slots, st[name][:, S - nfit:].to(dst.dtype))
+            else:
+                dst[:, :S] = st[name].to(dst.dtype)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return logits_from_hidden(cfg, params, x[:, -1:]), cache

@@ -41,7 +41,16 @@ def test_every_port_module_imports_without_jax_triton_or_repro():
     # every module of the slice was imported, the kernel's among them
     for name in ("repro_torch.core.builder", "repro_torch.runtime.local",
                  "repro_torch.kernels.mandelbrot.kernel",
-                 "repro_torch.kernels.mandelbrot.ops", "repro_torch.quickstart"):
+                 "repro_torch.kernels.mandelbrot.ops", "repro_torch.quickstart",
+                 "repro_torch.kernels.rmsnorm.kernel",
+                 "repro_torch.kernels.rmsnorm.ops",
+                 "repro_torch.kernels.flash_attention.kernel",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.configs.registry", "repro_torch.models.common",
+                 "repro_torch.models.convert", "repro_torch.models.layers",
+                 "repro_torch.models.attention", "repro_torch.models.lm",
+                 "repro_torch.runtime.steps", "repro_torch.runtime.serving",
+                 "repro_torch.launch.serve", "repro_torch.serve_pipeline"):
         assert name in seen["modules"]
 
 

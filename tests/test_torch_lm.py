@@ -1,0 +1,257 @@
+"""The port's dense decoder-only LM against the JAX package's, on the CPU.
+
+Parameters come from the JAX package's ``init_params`` (with random, nonzero
+RMS-norm scales, so that ``1 + scale`` is exercised) and cross as numpy
+through ``params_from_numpy``; tokens come from numpy.  Both run with
+``compute_dtype="float32"``.  Logits must agree within 2e-4, the tolerance
+of the JAX package's own decode-vs-forward test (``tests/test_archs.py``).
+The single layers agree within 1e-5 (float32 products of at most a few
+hundred terms, summed in another order).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jax_base
+from repro.configs.registry import ARCHS as JAX_ARCHS
+from repro.configs.registry import get_config as jax_get_config
+from repro.core.channels import padded_size as jax_padded_size
+from repro.models import attention as jax_attn
+from repro.models import layers as jax_layers
+from repro.models import lm as jax_lm
+from repro.models.common import _iter_leaves as jax_iter_leaves
+from repro.models.common import count_params as jax_count_params
+from repro.models.common import init_params as jax_init_params
+from repro.runtime import steps as jax_steps
+from repro_torch.configs import base
+from repro_torch.configs.registry import ARCHS, get_config
+from repro_torch.models import attention as port_attn
+from repro_torch.models import layers as port_layers
+from repro_torch.models import lm
+from repro_torch.models.common import _iter_leaves, count_params, init_params
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.runtime import steps
+
+LOGIT_TOL = 2e-4
+LAYER_TOL = 1e-5
+DENSE = ["yi-9b", "phi3-medium-14b", "command-r-35b", "gemma3-4b"]
+NOT_PORTED = ["recurrentgemma-2b", "olmoe-1b-7b", "llama4-maverick-400b-a17b",
+              "xlstm-350m"]
+
+
+def _configs(name):
+    jcfg = dataclasses.replace(jax_get_config(name).smoke(), compute_dtype="float32")
+    cfg = dataclasses.replace(get_config(name).smoke(), compute_dtype="float32")
+    return jcfg, cfg
+
+
+def _shared_params(jcfg, seed=0):
+    """JAX init_params with random norm scales -> (jax tree, port tree)."""
+    tree = jax.tree.map(np.asarray, jax_init_params(
+        jax_lm.lm_param_specs(jcfg, 1), jax.random.PRNGKey(seed), jnp.float32))
+    rng = np.random.default_rng(seed)
+
+    def norms(node, key=""):
+        if isinstance(node, dict):
+            return {k: norms(v, k) for k, v in node.items()}
+        if key in ("ln1", "ln2", "final_norm", "q_norm", "k_norm"):
+            return (0.2 * rng.standard_normal(node.shape)).astype(np.float32)
+        return node
+
+    tree = norms(tree)
+    return jax.tree.map(jnp.asarray, tree), params_from_numpy(tree, "cpu")
+
+
+def _close(port: torch.Tensor, ref, atol: float) -> None:
+    np.testing.assert_allclose(port.detach().float().numpy(),
+                               np.asarray(ref, np.float32), atol=atol)
+
+
+# -- configs ------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("name", sorted(JAX_ARCHS))
+def test_configs_equal_the_jax_package(name, smoke):
+    suffix = "-smoke" if smoke else ""
+    port = dataclasses.asdict(get_config(name + suffix))
+    assert port == dataclasses.asdict(jax_get_config(name + suffix))
+    assert set(ARCHS) == set(JAX_ARCHS)
+
+
+def test_config_helpers_equal_the_jax_package():
+    for dt in ("float32", "bfloat16", "float16", "int32", "int8"):
+        assert base.bytes_of(dt) == jax_base.bytes_of(dt)
+    for n, m in ((1, 8), (92553, 16), (40, 16), (64000, 1), (0, 4)):
+        assert base.padded_size(n, m) == jax_padded_size(n, m)
+    with pytest.raises(ValueError):
+        base.padded_size(3, 0)
+
+
+# -- parameter specs and initialisation ------------------------------------------------
+
+
+def _leaf_rows(leaves):
+    return [(p, s.shape, s.logical_axes, s.init, s.stddev) for p, s in leaves]
+
+
+@pytest.mark.parametrize("name", DENSE + ["internvl2-2b"])
+def test_param_specs_equal_the_jax_package_at_tp1(name):
+    specs = lm.lm_param_specs(get_config(name))
+    jspecs = jax_lm.lm_param_specs(jax_get_config(name), 1)
+    assert _leaf_rows(_iter_leaves(specs)) == _leaf_rows(jax_iter_leaves(jspecs))
+    assert count_params(specs) == jax_count_params(jspecs)
+    assert steps.model_param_specs(get_config(name)) == specs
+
+
+def test_yi_9b_at_full_width_has_its_published_size():
+    n = count_params(lm.lm_param_specs(get_config("yi-9b")))
+    assert 8.8e9 < n < 8.9e9  # 17.7 GB in bf16
+
+
+@pytest.mark.parametrize("name", NOT_PORTED + ["seamless-m4t-large-v2"])
+def test_unported_families_raise(name):
+    cfg = get_config(name).smoke()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        steps.model_param_specs(cfg)
+    if not cfg.encoder_layers:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            lm.cache_spec(cfg, 1, 8)
+
+
+def test_init_params_is_seeded_per_leaf():
+    specs = lm.lm_param_specs(get_config("yi-9b-smoke"))
+    a = init_params(specs, 0, "cpu")
+    b = init_params(specs, 0, "cpu")
+    c = init_params(specs, 1, "cpu", torch.bfloat16)
+    for (path, spec), x, y, z in zip(
+            _iter_leaves(specs), *(jax.tree.leaves(t) for t in (a, b, c))):
+        assert tuple(x.shape) == spec.shape and z.dtype == torch.bfloat16, path
+        assert torch.equal(x, y), path
+        if spec.init == "zeros":
+            assert not x.any(), path
+        else:
+            assert not torch.equal(x, z.float()), path
+    wq = a["blocks"]["attn"]["wq"]  # [layers, 64, 64], stddev 1/8
+    assert abs(float(wq.std()) - 0.125) < 0.01
+    assert not torch.equal(wq, a["blocks"]["attn"]["wk"])  # own generator each
+
+
+def test_params_from_numpy_keeps_keys_and_values():
+    tree = {"embed": np.arange(6, dtype=np.float32).reshape(3, 2),
+            "blocks": {"attn": {"ln1": np.ones((2, 4), np.float32)}}}
+    out = params_from_numpy(tree, "cpu", torch.bfloat16)
+    assert out["embed"].dtype == torch.bfloat16
+    assert torch.equal(out["embed"].float(), torch.arange(6.0).reshape(3, 2))
+    assert out["blocks"]["attn"]["ln1"].shape == (2, 4)
+
+
+# -- layers ------------------------------------------------------------------------------
+
+
+def test_layers_match_jax():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 5, 64), dtype=np.float32)
+    w = [rng.standard_normal(s, dtype=np.float32) * 0.1
+         for s in ((64, 96), (64, 96), (96, 64))]
+    _close(port_layers.swiglu(torch.from_numpy(x), *map(torch.from_numpy, w),
+                              torch.float32),
+           jax_layers.swiglu(jnp.asarray(x), *map(jnp.asarray, w), jnp.float32),
+           LAYER_TOL)
+    emb = rng.standard_normal((50, 64), dtype=np.float32)
+    toks = rng.integers(0, 50, (2, 5))
+    _close(port_layers.embed_tokens(torch.from_numpy(emb), torch.from_numpy(toks),
+                                    torch.float32),
+           jax_layers.embed_tokens(jnp.asarray(emb), jnp.asarray(toks), jnp.float32),
+           0.0)
+    head = rng.standard_normal((64, 50), dtype=np.float32)
+    for softcap in (0.0, 3.0):
+        _close(port_layers.lm_logits(torch.from_numpy(x), torch.from_numpy(head),
+                                     torch.float32, softcap),
+               jax_layers.lm_logits(jnp.asarray(x), jnp.asarray(head), jnp.float32,
+                                    softcap),
+               LAYER_TOL)
+
+
+@pytest.mark.parametrize("per_row", [False, True], ids=["positions_s", "positions_bs"])
+def test_rope_matches_jax(per_row):
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 7, 4, 16), dtype=np.float32)
+    pos = (rng.integers(0, 300, (2, 7)) if per_row else np.arange(7) + 11)
+    _close(port_attn.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e4),
+           jax_attn.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e4), LAYER_TOL)
+
+
+def test_decode_attention_with_a_length_per_row_matches_jax():
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((3, 1, 8, 16), dtype=np.float32)
+    ck, cv = (rng.standard_normal((3, 20, 2, 16), dtype=np.float32) for _ in "kv")
+    lens = np.array([1, 13, 20])
+    _close(port_attn.decode_attention(*map(torch.from_numpy, (q, ck, cv, lens))),
+           jax_attn.decode_attention(*map(jnp.asarray, (q, ck, cv, lens))),
+           LAYER_TOL)
+
+
+# -- the model: forward, prefill, decode ---------------------------------------------
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_prefill_and_decode_logits_match_jax(name):
+    jcfg, cfg = _configs(name)
+    jp, tp = _shared_params(jcfg)
+    B, S = 2, 33
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
+    jt = jnp.asarray(toks, jnp.int32)
+    tt = torch.from_numpy(toks)
+
+    jx, _ = jax_lm.forward_hidden(jcfg, jp, jt)
+    _close(lm.logits_from_hidden(cfg, tp, lm.forward_hidden(cfg, tp, tt)),
+           jax_lm.logits_from_hidden(jcfg, jp, jx), LOGIT_TOL)
+
+    jl, jcache = jax_lm.prefill(jcfg, jp, jt[:, :S - 1], max_seq=S + 8)
+    tl, tcache = lm.prefill(cfg, tp, tt[:, :S - 1], S + 8)
+    _close(tl, jl, LOGIT_TOL)
+    for kind in jcache:
+        for leaf in ("k", "v"):
+            _close(tcache[kind][leaf], jcache[kind][leaf], LOGIT_TOL)
+
+    # one step at a common length (int), then per-row lengths ([B] tensor)
+    jd, jcache = jax_lm.decode_step(jcfg, jp, jcache, jt[:, S - 1:],
+                                    jnp.int32(S - 1))
+    td, tcache = lm.decode_step(cfg, tp, tcache, tt[:, S - 1:], S - 1)
+    _close(td, jd, LOGIT_TOL)
+    nxt = np.array(jnp.argmax(jd[:, 0, : cfg.vocab_size], axis=-1))[:, None]
+    lens = np.array([S, S])
+    jd2, _ = jax_lm.decode_step(jcfg, jp, jcache, jnp.asarray(nxt, jnp.int32),
+                                jnp.asarray(lens, jnp.int32))
+    td2, _ = lm.decode_step(cfg, tp, tcache, torch.from_numpy(nxt),
+                            torch.from_numpy(lens))
+    _close(td2, jd2, LOGIT_TOL)
+
+
+def test_step_factories_match_jax():
+    jcfg, cfg = _configs("yi-9b")
+    jp, tp = _shared_params(jcfg, seed=2)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 12))
+    want = jax_steps.make_prefill_step(jcfg)(jp, {"tokens": jnp.asarray(toks)})
+    got = steps.make_prefill_step(cfg)(tp, {"tokens": torch.from_numpy(toks)})
+    assert got.shape == (2, cfg.padded_vocab(1))
+    _close(got, want, LOGIT_TOL)
+    _, tcache = lm.prefill(cfg, tp, torch.from_numpy(toks), 16)
+    _, jcache = jax_lm.prefill(jcfg, jp, jnp.asarray(toks), 16)
+    got, _ = steps.make_decode_step(cfg)(tp, tcache, torch.from_numpy(toks[:, :1]), 12)
+    want, _ = jax_steps.make_decode_step(jcfg)(jp, jcache, jnp.asarray(toks[:, :1]),
+                                               jnp.int32(12))
+    _close(got, want, LOGIT_TOL)
+
+
+def test_prefill_refuses_a_prompt_longer_than_the_cache():
+    cfg = get_config("yi-9b-smoke")
+    params = init_params(lm.lm_param_specs(cfg), 0, "cpu")
+    with pytest.raises(ValueError, match="exceeds max_seq"):
+        lm.prefill(cfg, params, torch.zeros((1, 9), dtype=torch.int64), 8)

@@ -1,0 +1,173 @@
+"""The port's RMS-norm and flash-attention paths against the JAX package's,
+on the CPU.
+
+Inputs are made with numpy from a seed and cast to each dtype by each
+framework (both round to nearest even, so the inputs are equal).  On CPU
+tensors the port's entry points run their plain versions; the CUDA kernels
+themselves run only on the card, where ``chip_smoke.py`` holds them against
+these plain versions.  Tolerances are the JAX package's own
+(``tests/test_kernels.py``): RMS norm 1e-6 (f32) and 2e-2 (bf16); flash
+attention 2e-6 against the reference, 3e-6 against the model's blockwise
+path, 2e-2 in bf16.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ref import attention_reference as jax_flash_ref
+from repro.kernels.rmsnorm import ops as jax_rms_ops
+from repro.kernels.rmsnorm.ref import rms_norm_reference as jax_rms_ref
+from repro.models.attention import attention_blockwise as jax_blockwise
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.mandelbrot import kernel as mandel_kernel
+from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm import ref as rms_ref
+from repro_torch.models import attention as port_attn
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _both(x: np.ndarray, dtype: str):
+    jdt, tdt = DTYPES[dtype]
+    return jnp.asarray(x).astype(jdt), torch.from_numpy(x.copy()).to(tdt)
+
+
+def _close(port: torch.Tensor, ref, atol: float) -> None:
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref, np.float32), atol=atol)
+
+
+# -- RMS norm ------------------------------------------------------------------
+
+RMS_SHAPES = [(8, 512), (3, 100, 256), (4, 1000), (9, 77)]
+RMS_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("oracle", ["reference", "pallas_interpret"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", RMS_SHAPES, ids=str)
+def test_rmsnorm_plain_version_matches_jax(shape, dtype, oracle):
+    rng = np.random.default_rng(0)
+    d = shape[-1]
+    jx, tx = _both(rng.standard_normal(shape, dtype=np.float32), dtype)
+    scale = (0.2 * rng.standard_normal(d)).astype(np.float32)
+    if oracle == "reference":
+        want = jax_rms_ref(jx.reshape(-1, d), jnp.asarray(scale)).reshape(shape)
+    else:  # the Pallas kernel itself, in interpret mode
+        want = jax_rms_ops.rms_norm(jx, jnp.asarray(scale))
+    got = rms_ops.rms_norm(tx, torch.from_numpy(scale))
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    _close(got, want, RMS_TOL[dtype])
+
+
+def test_rmsnorm_cpu_entry_point_is_the_plain_version():
+    x = torch.randn(5, 33, generator=torch.Generator().manual_seed(0))
+    s = torch.full((33,), 0.25)
+    before = rms_kernel.LAUNCHES
+    assert torch.equal(rms_ops.rms_norm(x, s), rms_ref.rms_norm_reference(x, s))
+    assert rms_kernel.LAUNCHES == before
+
+
+# -- flash attention ------------------------------------------------------------
+
+# (b, h, kv, s, d, causal, window): the sweep of tests/test_kernels.py.
+FLASH_SWEEP = [
+    (2, 4, 4, 256, 64, True, 0),
+    (1, 8, 2, 256, 32, True, 64),
+    (2, 2, 2, 128, 128, False, 0),
+    (1, 4, 1, 384, 64, True, 128),
+    (1, 4, 4, 200, 64, True, 0),  # ragged
+]
+FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+BLOCKWISE_TOL = {"float32": 3e-6, "bfloat16": 2e-2}
+
+
+def _qkv(b, h, kv, s, d, dtype, layout):
+    """numpy inputs in [B, heads, S, D] ("bhsd") or [B, S, heads, D]."""
+    rng = np.random.default_rng(7)
+    shapes = [(b, h, s, d), (b, kv, s, d), (b, kv, s, d)]
+    arrays = [rng.standard_normal(shp, dtype=np.float32) for shp in shapes]
+    if layout == "bshd":
+        arrays = [np.ascontiguousarray(a.transpose(0, 2, 1, 3)) for a in arrays]
+    return [_both(a, dtype) for a in arrays]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window", FLASH_SWEEP)
+def test_flash_plain_version_matches_jax_reference(b, h, kv, s, d, causal,
+                                                   window, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(b, h, kv, s, d, dtype, "bhsd")
+    want = jax_flash_ref(jq, jnp.repeat(jk, h // kv, axis=1),
+                         jnp.repeat(jv, h // kv, axis=1),
+                         causal=causal, window=window)
+    got = flash_ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, want, FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window", FLASH_SWEEP)
+def test_model_attention_matches_jax_blockwise(b, h, kv, s, d, causal, window,
+                                               dtype):
+    """The model's [B, S, H, D] attention against the JAX model's blockwise
+    XLA path (grouped KV heads, no repeat)."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(b, h, kv, s, d, dtype, "bshd")
+    q_chunk = 64 if s % 64 == 0 else 8
+    want = jax_blockwise(jq, jk, jv, causal=causal, window=window,
+                         q_chunk=q_chunk)
+    got = port_attn.attention(tq, tk, tv, causal=causal, window=window)
+    assert got.shape == tq.shape
+    _close(got, want, BLOCKWISE_TOL[dtype])
+
+
+def test_flash_cpu_entry_point_repeats_kv_heads():
+    """GQA on the CPU: query head h reads KV head h // (H / KV)."""
+    (_, q), (_, k), (_, v) = _qkv(1, 6, 2, 40, 16, "float32", "bhsd")
+    got = flash_ops.flash_attention(q, k, v, window=8)
+    for h in range(6):
+        one = flash_ops.flash_attention(q[:, h:h + 1], k[:, h // 3:h // 3 + 1],
+                                        v[:, h // 3:h // 3 + 1], window=8)
+        assert torch.equal(got[:, h:h + 1], one)
+
+
+# -- no fallback, and the build ---------------------------------------------------
+
+
+@pytest.mark.parametrize("call", [
+    lambda t: rms_kernel.rms_norm_cuda(t, torch.zeros(t.shape[-1])),
+    lambda t: flash_kernel.flash_attention_cuda(t[None, None], t[None, None],
+                                                t[None, None]),
+], ids=["rmsnorm", "flash"])
+def test_kernel_wrappers_refuse_cpu_tensors(call):
+    before = (rms_kernel.LAUNCHES, flash_kernel.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call(torch.zeros(8, 32))
+    assert (rms_kernel.LAUNCHES, flash_kernel.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("call", [
+    lambda t: rms_ops.rms_norm(t, torch.zeros(32, device="meta")),
+    lambda t: flash_ops.flash_attention(t[None, None], t[None, None],
+                                        t[None, None]),
+], ids=["rmsnorm", "flash"])
+def test_entry_points_send_non_cpu_tensors_to_the_kernel(call):
+    """A tensor off the CPU never takes the plain version: it reaches the
+    kernel's wrapper, which refuses anything but a CUDA tensor."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call(torch.zeros(8, 32, device="meta"))
+
+
+def test_build_flags_are_per_source_and_hashed():
+    sources = (mandel_kernel.SOURCE, rms_kernel.SOURCE, flash_kernel.SOURCE)
+    paths = {_build.library_path(s, f) for s in sources
+             for f in ((), ("-fmad=false",))}
+    assert len(paths) == 6  # the flags and the source each change the name
+    assert mandel_kernel.FLAGS == ("-fmad=false",)
+    assert "-fmad=false" not in _build.NVCC_FLAGS
+    assert all(p.parent == _build.BUILD_DIR for p in paths)

@@ -1,0 +1,128 @@
+"""The port's serving engine against the JAX package's, on the CPU.
+
+Both engines get the same parameters (the JAX package's ``init_params`` with
+random RMS-norm scales, carried across as numpy) and the same requests, and
+run with ``compute_dtype="float32"``, as the JAX package's own serving tests
+do: greedy tokens must then be equal, token for token.  The port's engine
+must also equal its own offline greedy decode (``prefill`` +
+``decode_step``), and the entry points must refuse to run without a card
+unless asked for the CPU.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_config as jax_get_config
+from repro.models import lm as jax_lm
+from repro.models.common import init_params as jax_init_params
+from repro.runtime.serving import Request as JaxRequest
+from repro.runtime.serving import ServingEngine as JaxServingEngine
+from repro_torch import serve_pipeline
+from repro_torch.configs.registry import get_config
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models import lm
+from repro_torch.models.common import init_params
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.runtime.serving import Request, ServingEngine
+
+MAX_SEQ = 48
+
+
+def _shared(name, seed=0):
+    jcfg = dataclasses.replace(jax_get_config(name).smoke(), compute_dtype="float32")
+    cfg = dataclasses.replace(get_config(name).smoke(), compute_dtype="float32")
+    tree = jax.tree.map(np.asarray, jax_init_params(
+        jax_lm.lm_param_specs(jcfg, 1), jax.random.PRNGKey(seed), jnp.float32))
+    rng = np.random.default_rng(seed)
+    for block in tree["blocks"].values():
+        for key in ("ln1", "ln2", "q_norm", "k_norm"):
+            if key in block:
+                block[key] = (0.2 * rng.standard_normal(block[key].shape)
+                              ).astype(np.float32)
+    tree["final_norm"] = (0.2 * rng.standard_normal(tree["final_norm"].shape)
+                          ).astype(np.float32)
+    return jcfg, cfg, jax.tree.map(jnp.asarray, tree), params_from_numpy(tree, "cpu")
+
+
+def _requests(vocab, n=7, seed=1):
+    rng = np.random.default_rng(seed)
+    return [(rid, list(map(int, rng.integers(0, vocab, int(rng.integers(3, 12))))),
+             int(rng.integers(2, 7))) for rid in range(n)]
+
+
+@pytest.mark.parametrize("name", ["yi-9b", "gemma3-4b"])
+def test_engine_tokens_equal_the_jax_engine(name):
+    jcfg, cfg, jp, tp = _shared(name)
+    reqs = _requests(cfg.vocab_size)
+    jeng = JaxServingEngine(jcfg, jp, max_slots=3, max_seq=MAX_SEQ)
+    teng = ServingEngine(cfg, tp, max_slots=3, max_seq=MAX_SEQ)
+    for rid, prompt, n_new in reqs:
+        jeng.submit(JaxRequest(rid=rid, prompt=prompt, max_new_tokens=n_new))
+        teng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n_new))
+    jdone = sorted(jeng.shutdown(), key=lambda c: c.rid)
+    tdone = sorted(teng.shutdown(), key=lambda c: c.rid)
+    assert [(c.rid, c.prompt_len, c.tokens) for c in tdone] == \
+           [(c.rid, c.prompt_len, c.tokens) for c in jdone]
+    # the demand-driven schedule is the same: each slot served as many
+    assert ({t.node_id: t.items for t in teng.timing.nodes} ==
+            {t.node_id: t.items for t in jeng.timing.nodes})
+
+
+def test_engine_equals_offline_greedy_decode():
+    _, cfg, _, tp = _shared("yi-9b", seed=3)
+    eng = ServingEngine(cfg, tp, max_slots=2, max_seq=MAX_SEQ)
+    for rid, prompt, n_new in _requests(cfg.vocab_size, n=5, seed=4):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n_new))
+    done = eng.shutdown()
+    assert len(done) == 5
+    for c in done:
+        prompt, gen = c.tokens[: c.prompt_len], c.tokens[c.prompt_len:]
+        assert gen == serve_pipeline.offline_greedy(cfg, tp, prompt, len(gen),
+                                                    MAX_SEQ), f"rid {c.rid}"
+
+
+def test_serving_engine_demand_driven_idle_slots():
+    """More requests than slots: every slot processes some work (the onrl
+    server answers whichever slot requests next)."""
+    cfg = dataclasses.replace(get_config("yi-9b").smoke(), compute_dtype="float32")
+    params = init_params(lm.lm_param_specs(cfg), 0, "cpu")
+    eng = ServingEngine(cfg, params, max_slots=3, max_seq=MAX_SEQ)
+    for rid in range(9):
+        eng.submit(Request(rid=rid, prompt=[1, 2, 3], max_new_tokens=3))
+    done = eng.shutdown()
+    assert sorted(c.rid for c in done) == list(range(9))
+    items = {t.node_id: t.items for t in eng.timing.nodes
+             if t.node_id.startswith("slot")}
+    assert all(v > 0 for v in items.values())
+    assert sum(items.values()) == 9
+    with pytest.raises(RuntimeError, match="shut down"):
+        eng.submit(Request(rid=9, prompt=[1], max_new_tokens=1))
+
+
+def test_cli_and_pipeline_run_on_the_cpu_when_asked(capsys):
+    done = serve_cli.main(["--arch", "yi-9b", "--device", "cpu",
+                           "--requests", "5", "--max-new", "4"])
+    assert sorted(c.rid for c in done) == list(range(5))
+    assert all(len(c.tokens) - c.prompt_len == 4 for c in done)
+    assert len(serve_pipeline.main(["--device", "cpu"])) == 10
+    out = capsys.readouterr().out
+    assert "served 5 requests" in out and "engine output == offline greedy" in out
+
+
+@pytest.mark.parametrize("call", [
+    lambda: serve_cli.main(["--arch", "yi-9b"]),
+    lambda: serve_pipeline.main([]),
+    lambda: init_params(lm.lm_param_specs(get_config("yi-9b-smoke"))),
+    lambda: params_from_numpy({"embed": np.zeros((2, 2), np.float32)}),
+    lambda: lm.init_cache(get_config("yi-9b-smoke"), 1, 8),
+], ids=["serve_cli", "serve_pipeline", "init_params", "params_from_numpy",
+        "init_cache"])
+def test_entry_points_need_the_card_unless_asked_for_the_cpu(call, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
