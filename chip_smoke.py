@@ -2,19 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch`` (one ``nvcc`` per
-source, all at once) and drives the port's two paths on the card:
+Builds the port's four CUDA kernels from ``src/repro_torch`` (one ``nvcc``
+per source, all at once) and drives the port's paths on the card:
 
 1. The paper's Mandelbrot job (3,200 lines x 5,600 points, escape value
    1,000, 2 clusters x 4 cores) parsed from ``.cgpp``, verified, planned and
    run on the threads backend, every line through the escape-time kernel,
    which is first held against its plain version (exact equality).
-2. LM serving: the fused RMS-norm and flash-attention kernels are held
-   against their plain versions; then ``ServingEngine`` serves yi-9b at
-   full width, first cut to 4 layers in float32 (every completion must
-   equal offline greedy decode), then at full depth (48 layers, bf16
-   weights from ``init_params`` on the card), where the kernels' launches
-   are counted.
+2. LM serving, dense: the fused RMS-norm, flash-attention and RG-LRU scan
+   kernels are held against their plain versions; then ``ServingEngine``
+   serves yi-9b at full width, first cut to 4 layers in float32 (every
+   completion must equal offline greedy decode), then at full depth (48
+   layers, bf16 weights from ``init_params`` on the card), where the
+   kernels' launches are counted.
+3. LM serving, recurrent: the same for recurrentgemma-2b (RG-LRU and
+   sliding-window attention, window 2048), cut to one period of 3 layers
+   in float32, then at full depth (26 layers, bf16), with prompts longer
+   than the window so that the local layers' ring wraps, and its serving
+   run repeated under ``torch.profiler`` to see where the device time goes.
 
 Each phase prints one JSON line; any failure exits non-zero.  The line
 before the last lists every kernel with its launches on its path, its
@@ -56,9 +61,12 @@ from repro_torch.kernels.mandelbrot.ref import (  # noqa: E402
     grid_coords,
     mandelbrot_reference,
 )
+from repro_torch.kernels.rglru import kernel as rglru_kernel  # noqa: E402
+from repro_torch.kernels.rglru.ref import rglru_scan_reference  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rms_norm_reference  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import recurrent as rec_mod  # noqa: E402
 from repro_torch.models.common import count_params, init_params  # noqa: E402
 from repro_torch.quickstart import (  # noqa: E402
     LINES,
@@ -72,11 +80,13 @@ from repro_torch.runtime.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.serve_pipeline import offline_greedy  # noqa: E402
 
 # H100 SXM: 132 SMs of 128 FP32 lanes; HBM3 at 3.35 TB/s; dense bf16 tensor
-# cores at 989 TFLOP/s (NVIDIA data sheet).
+# cores at 989 TFLOP/s; FP32 outside the tensor cores 67 TFLOP/s (NVIDIA
+# data sheet).
 SMS = 132
 FP32_LANES = 128
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12
 # FP32 instructions per live iteration: two squares, the escape test's add
 # and compare, the two fmas, the add of x0 (csrc/mandelbrot.cu).
 INSTR_PER_ITER = 7
@@ -87,6 +97,7 @@ BYTES_PER_POINT = 16  # two f32 coordinates in, two i32 results out
 LINE_CHUNK = 200
 SPIN_S = 0.05
 CALL_CHUNK = 32  # calls per chunk when timing the serving kernels
+START = time.perf_counter()
 
 CHECK_SHAPES = [(9, 77, 30), (32, 300, 100), (64, 700, 1000), (1, WIDTH, 1000)]
 
@@ -105,19 +116,37 @@ FLASH_SWEEP = [(2, 4, 4, 256, 256, 64, True, 0), (1, 8, 2, 256, 256, 32, True, 6
 FLASH_YI = [(1, 32, 4, s, s, 128, True, 0) for s in (77, 128, 1000, 2048)]
 FLASH_OTHER = [(1, 8, 4, 300, 300, 256, True, 64), (2, 4, 2, 50, 50, 16, True, 32),
                (1, 4, 2, 100, 150, 64, False, 0)]
+# recurrentgemma-2b's local attention: MQA, head_dim 256, window 2048 < S.
+FLASH_RG = [(1, 10, 1, 3000, 3000, 256, True, 2048)]
 FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
+# RG-LRU checks (b, s, w): the reference sweep of tests/test_kernels.py, with
+# h0; then the model's shapes, a prefill and a decode tick.
+RGLRU_SWEEP = [(2, 64, 128), (1, 128, 200), (3, 32, 64)]
+RGLRU_MODEL = [(1, 3000, 2560, False), (4, 1, 2560, True)]
+RGLRU_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 
-# Serving: yi-9b at full width.  serve_check cuts depth to 4 layers and runs
-# in float32 (greedy equality between batch 4 and batch 1 is fragile in
-# bf16); serve runs all 48 layers in bf16.
-SERVE_ARCH = "yi-9b"
-CHECK_LAYERS = 4
-CHECK_REQUESTS, CHECK_PROMPT, CHECK_NEW, CHECK_MAX_SEQ = 8, (20, 601), 8, 1024
-SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 16, (64, 1025), 16
-SERVE_SLOTS, SERVE_MAX_SEQ = 4, 2048
+# Serving.  The checks cut depth and run in float32 with TF32 off (greedy
+# equality between batch 4 and batch 1 is fragile in bf16); the serve
+# phases run at full depth in bf16.  Every request asks for SERVE_NEW tokens
+# (CHECK_NEW in the checks), 16 requests over 4 slots, half of them
+# submitted after 3 ticks.
+YI, RG = "yi-9b", "recurrentgemma-2b"
+CHECK_REQUESTS, CHECK_NEW = 8, 8
+SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS = 16, 16, 4
+YI_CHECK_LAYERS, YI_CHECK_PROMPT, YI_CHECK_MAX_SEQ = 4, (20, 601), 1024
+YI_SERVE_PROMPT, YI_SERVE_MAX_SEQ = (64, 1025), 2048
+# recurrentgemma-2b: one period (rec, rec, local) in the check; prompts of
+# up to 3,500 tokens, past the local window of 2,048, in both phases.
+RG_CHECK_LAYERS, RG_MAX_SEQ = 3, 4096
+RG_CHECK_PROMPTS = ((6, (20, 2049)), (2, (2049, 3001)))
+RG_SERVE_PROMPTS = ((12, (64, 1025)), (4, (2100, 3501)))
 
 
 def emit(obj: dict) -> None:
+    """Print ``obj`` as a JSON line; a phase's line gets the seconds since
+    the run started."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -186,6 +215,9 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     card = nvidia_smi("name,power.limit")
     max_clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    # Full float32 products and convolutions in the float32 checks.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     emit({"phase": "card", "nvidia_smi": card, "kind": kind,
           "max_sm_clock_mhz": max_clock_hz / 1e6,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -196,10 +228,10 @@ def main() -> None:
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = {name: pool.submit(timed_load, module) for name, module in (
             ("mandelbrot", mandel_kernel), ("rmsnorm", rms_kernel),
-            ("flash_attention", flash_kernel))}
+            ("flash_attention", flash_kernel), ("rglru", rglru_kernel))}
         seconds = {name: f.result() for name, f in builds.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": seconds})
@@ -311,11 +343,23 @@ def main() -> None:
         "library_ms": None,
     }
 
-    rms_err = check_rmsnorm()
-    flash_err = check_flash()
-    serve_check()
-    serve = serve_full()
-    rows = kernel_rows(serve, rms_err, flash_err)
+    errs = {"rmsnorm": check_rmsnorm(), "flash": check_flash(),
+            "rglru": check_rglru()}
+    serve_check(YI, "serve_check", YI_CHECK_LAYERS, YI_CHECK_MAX_SEQ,
+                lambda rng, vocab: make_requests(
+                    rng, CHECK_REQUESTS, YI_CHECK_PROMPT, CHECK_NEW, vocab))
+    serves = {YI: serve_full(YI, "serve", YI_SERVE_MAX_SEQ,
+                             lambda rng, vocab: make_requests(
+                                 rng, SERVE_REQUESTS, YI_SERVE_PROMPT,
+                                 SERVE_NEW, vocab), profile=False)}
+    serve_check(RG, "serve_check_rg", RG_CHECK_LAYERS, RG_MAX_SEQ,
+                lambda rng, vocab: requests_of_lengths(
+                    rng, RG_CHECK_PROMPTS, CHECK_NEW, vocab))
+    serves[RG] = serve_full(RG, "serve_rg", RG_MAX_SEQ,
+                            lambda rng, vocab: requests_of_lengths(
+                                rng, RG_SERVE_PROMPTS, SERVE_NEW, vocab),
+                            profile=True)
+    rows = kernel_rows(serves, errs)
     print(card, flush=True)
     emit({"kernels": [mandel_row, *rows]})
     print(json.dumps({"ok": True, "device": {
@@ -323,31 +367,37 @@ def main() -> None:
 
 
 # ---------------------------------------------------------------------------
-# LM serving: kernel checks, serve_check, serve
+# LM serving: kernel checks, serve checks, serve phases
 # ---------------------------------------------------------------------------
 
 
-def spun_device_ms(calls, max_clock_hz: float) -> float:
-    """Device time of ``calls`` (thunks that launch work), in ms.
+def spun_device_ms(calls, max_clock_hz: float) -> tuple[float, bool]:
+    """Device time of ``calls`` (thunks that launch work), in ms, and
+    whether the host may have paced it.
 
     Each chunk of calls is enqueued behind a spin kernel, so its events
-    time the device alone and not the host's enqueue rate.  A chunk must
-    stay inside the queue of about a thousand pending launches, or the host
-    blocks and its enqueue rate shows in the time: 32 calls of a plain
-    version of up to about 25 kernels each do.
+    time the device alone and not the host's enqueue rate, as long as the
+    host finishes enqueueing the chunk before the spin ends.  32 calls of
+    up to about 25 kernels each do, inside the queue of about a thousand
+    pending launches.  A chunk whose enqueue outlasts the spin (a call of
+    thousands of launches fills the queue and blocks the host) may have
+    left the device waiting on the host; then its time is partly the
+    host's, and the second value is True.
     """
-    total = 0.0
+    total, host_paced = 0.0, False
     for c in range(0, len(calls), CALL_CHUNK):
         torch.cuda._sleep(int(SPIN_S * max_clock_hz))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
+        t0 = time.perf_counter()
         for call in calls[c:c + CALL_CHUNK]:
             call()
+        host_paced |= time.perf_counter() - t0 > SPIN_S
         end.record()
         end.synchronize()
         total += start.elapsed_time(end)
-    return total
+    return total, host_paced
 
 
 def check_rmsnorm() -> float:
@@ -395,7 +445,7 @@ def check_flash() -> float:
     gen = torch.Generator("cuda").manual_seed(1)
     worst = 0.0
     cases = ([(c, False) for c in FLASH_SWEEP] + [(c, True) for c in FLASH_YI]
-             + [(c, False) for c in FLASH_OTHER])
+             + [(c, False) for c in FLASH_OTHER] + [(c, True) for c in FLASH_RG])
     for dtype in (torch.float32, torch.bfloat16):
         for (b, h, kv, sq, skv, d, causal, window), layout in cases:
             q, k, v = flash_inputs(b, h, kv, sq, skv, d, dtype, gen, layout)
@@ -419,11 +469,71 @@ def check_flash() -> float:
     return worst
 
 
-def random_norm_scales(params, gen) -> None:
-    """Nonzero RMS-norm scales, so that (1 + scale) is exercised."""
+def model_gates(b: int, s: int, w: int, gen, seed: int = 0):
+    """(a, bx) as recurrentgemma's gates make them from x ~ N(0, 1), with
+    one layer's RG-LRU parameters from ``init_params``: |h| stays near |x|."""
+    layer = {k: v[0] for k, v in init_params(
+        rec_mod.rglru_param_specs(1, w), seed, "cuda").items()}
+    x = torch.randn((b, s, w), generator=gen, device="cuda")
+    return rec_mod._gates(layer, x)
+
+
+def check_rglru() -> float:
+    """RG-LRU kernel against its plain version on the card: the reference
+    sweep with h0, state chaining, then the model's shapes."""
+    gen = torch.Generator("cuda").manual_seed(4)
+    worst = 0.0
+
+    def compare(label, got, want, dtype, extra):
+        nonlocal worst
+        torch.cuda.synchronize()
+        errs = [float((g.float() - w.float()).abs().max())
+                for g, w in zip(got, want)]
+        ok = (got[0].dtype == dtype and got[1].dtype == torch.float32
+              and all(bool(torch.isfinite(g).all()) for g in got)
+              and max(errs) <= RGLRU_TOL[dtype])
+        emit({"phase": "rglru_kernel_vs_plain", "case": label, **extra,
+              "dtype": str(dtype), "max_abs_err_h": errs[0],
+              "max_abs_err_h_last": errs[1], "tol": RGLRU_TOL[dtype], "ok": ok})
+        if not ok:
+            raise SystemExit(f"rglru kernel differs: {label} {extra} {dtype}")
+        worst = max(worst, *errs)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, w in RGLRU_SWEEP:
+            a = (0.5 + 0.499 * torch.rand((b, s, w), generator=gen,
+                                          device="cuda")).to(dtype)
+            x = torch.randn((b, s, w), generator=gen, device="cuda").to(dtype)
+            h0 = torch.randn((b, w), generator=gen, device="cuda").to(dtype)
+            compare("sweep", rglru_kernel.rglru_scan_cuda(a, x, h0),
+                    rglru_scan_reference(a, x, h0), dtype, {"shape": [b, s, w]})
+        # Two halves with the carried state equal the whole.
+        a = (0.5 + 0.49 * torch.rand((1, 64, 128), generator=gen,
+                                     device="cuda")).to(dtype)
+        x = torch.randn((1, 64, 128), generator=gen, device="cuda").to(dtype)
+        h1, last1 = rglru_kernel.rglru_scan_cuda(a[:, :32].contiguous(),
+                                                 x[:, :32].contiguous())
+        h2, last2 = rglru_kernel.rglru_scan_cuda(a[:, 32:].contiguous(),
+                                                 x[:, 32:].contiguous(), last1)
+        compare("state_chaining", (torch.cat([h1, h2], dim=1), last2),
+                rglru_scan_reference(a, x), dtype, {"shape": [1, 64, 128]})
+    for b, s, w, with_h0 in RGLRU_MODEL:
+        a, bx = model_gates(b, s, w, gen)
+        h0 = torch.randn((b, w), generator=gen, device="cuda") if with_h0 else None
+        compare("model", rglru_kernel.rglru_scan_cuda(a, bx, h0),
+                rglru_scan_reference(a, bx, h0), torch.float32,
+                {"shape": [b, s, w], "h0": with_h0})
+    return worst
+
+
+def randomize_small_params(params, gen) -> None:
+    """Nonzero RMS-norm scales, so that (1 + scale) is exercised, and
+    nonzero RG-LRU gate biases."""
     leaves = [params["final_norm"]]
     for block in params["blocks"].values():
         leaves += [block["ln1"], block["ln2"]]
+        if "rec" in block:
+            leaves += [block["rec"]["rglru"]["b_a"], block["rec"]["rglru"]["b_x"]]
     for leaf in leaves:
         leaf.copy_(0.2 * torch.randn(leaf.shape, generator=gen, device="cuda"))
 
@@ -436,17 +546,26 @@ def make_requests(rng, n, prompt_range, max_new, vocab):
             for rid in range(n)]
 
 
-def serve_check() -> None:
-    """Engine completions equal offline greedy decode: yi-9b at full width,
-    4 layers, float32."""
-    cfg = dataclasses.replace(get_config(SERVE_ARCH), num_layers=CHECK_LAYERS,
+def requests_of_lengths(rng, groups, max_new, vocab):
+    """Requests whose prompt lengths are drawn group by group, ``(count,
+    (low, high))``, then shuffled, so that the long ones land in both
+    halves of the schedule."""
+    lens = rng.permutation(np.concatenate(
+        [rng.integers(lo, hi, n) for n, (lo, hi) in groups]))
+    return [Request(rid=rid, prompt=list(map(int, rng.integers(0, vocab, int(n)))),
+                    max_new_tokens=max_new)
+            for rid, n in enumerate(lens)]
+
+
+def serve_check(arch: str, phase: str, layers: int, max_seq: int, make) -> None:
+    """Engine completions equal offline greedy decode: ``arch`` at full
+    width, cut to ``layers`` layers, float32."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
                               compute_dtype="float32")
     params = init_params(lm.lm_param_specs(cfg), 0, "cuda", torch.float32)
-    random_norm_scales(params, torch.Generator("cuda").manual_seed(2))
-    engine = ServingEngine(cfg, params, max_slots=SERVE_SLOTS,
-                           max_seq=CHECK_MAX_SEQ)
-    reqs = make_requests(np.random.default_rng(0), CHECK_REQUESTS,
-                         CHECK_PROMPT, CHECK_NEW, cfg.vocab_size)
+    randomize_small_params(params, torch.Generator("cuda").manual_seed(2))
+    engine = ServingEngine(cfg, params, max_slots=SERVE_SLOTS, max_seq=max_seq)
+    reqs = make(np.random.default_rng(0), cfg.vocab_size)
     for r in reqs:
         engine.submit(r)
     t0 = time.perf_counter()
@@ -455,44 +574,62 @@ def serve_check() -> None:
     mismatched = []
     for c in done:
         prompt, gen = c.tokens[:c.prompt_len], c.tokens[c.prompt_len:]
-        if gen != offline_greedy(cfg, params, prompt, len(gen), CHECK_MAX_SEQ):
+        if gen != offline_greedy(cfg, params, prompt, len(gen), max_seq):
             mismatched.append(c.rid)
-    ok = len(done) == CHECK_REQUESTS and not mismatched
-    emit({"phase": "serve_check", "arch": SERVE_ARCH, "d_model": cfg.d_model,
-          "num_layers": cfg.num_layers,
-          "depth_cut": f"{CHECK_LAYERS} of {get_config(SERVE_ARCH).num_layers} layers",
+    ok = len(done) == len(reqs) and not mismatched
+    lens = sorted(c.prompt_len for c in done)
+    emit({"phase": phase, "arch": arch, "d_model": cfg.d_model,
+          "num_layers": cfg.num_layers, "layer_kinds": cfg.layer_counts(),
+          "depth_cut": f"{layers} of {get_config(arch).num_layers} layers",
           "compute_dtype": cfg.compute_dtype, "requests": len(done),
-          "prompt_lens": sorted(c.prompt_len for c in done),
+          "max_seq": max_seq, "prompt_lens": lens,
+          "prompts_past_window": sum(n > cfg.window_size > 0 for n in lens),
           "mismatched_rids": mismatched, "wall_s": wall_s, "ok": ok})
     if not ok:
-        raise SystemExit(f"engine != offline greedy decode for {mismatched}")
+        raise SystemExit(f"{arch}: engine != offline greedy decode for {mismatched}")
     del engine, params
     torch.cuda.empty_cache()
 
 
+KERNELS = {"mandelbrot": mandel_kernel, "rmsnorm": rms_kernel,
+           "flash": flash_kernel, "rglru": rglru_kernel}
+
+
 def reset_launches() -> None:
-    mandel_kernel.LAUNCHES = rms_kernel.LAUNCHES = flash_kernel.LAUNCHES = 0
+    for module in KERNELS.values():
+        module.LAUNCHES = 0
 
 
-def serve_full() -> dict:
-    """yi-9b at full width and depth in bf16, through ServingEngine."""
-    cfg = get_config(SERVE_ARCH)
+def expected_launches(cfg, prefills: int, ticks: int) -> dict[str, int]:
+    """Per prefill pass and per tick: ln1 and ln2 in every block plus
+    final_norm; one flash launch per attention layer per prefill; one
+    RG-LRU launch per rec layer per prefill and per tick."""
+    counts = cfg.layer_counts()
+    rec = counts.get("rec", 0)
+    return {"mandelbrot": 0,
+            "rmsnorm": (2 * cfg.num_layers + 1) * (prefills + ticks),
+            "flash": (cfg.num_layers - rec) * prefills,
+            "rglru": rec * (prefills + ticks)}
+
+
+def serve_full(arch: str, phase: str, max_seq: int, make,
+               profile: bool) -> dict:
+    """``arch`` at full width and depth in bf16, through ServingEngine;
+    with ``profile``, a profiled repeat follows."""
+    cfg = get_config(arch)
     specs = lm.lm_param_specs(cfg)
     t0 = time.perf_counter()
     params = init_params(specs, 0, "cuda", torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     # Warm-up (cuBLAS handles and bf16 algorithms): one short request.
-    warm = ServingEngine(cfg, params, max_slots=SERVE_SLOTS,
-                         max_seq=SERVE_MAX_SEQ)
+    warm = ServingEngine(cfg, params, max_slots=SERVE_SLOTS, max_seq=max_seq)
     warm.submit(Request(rid=-1, prompt=list(range(1, 65)), max_new_tokens=2))
     warm.shutdown()
     del warm
-    engine = ServingEngine(cfg, params, max_slots=SERVE_SLOTS,
-                           max_seq=SERVE_MAX_SEQ)
+    engine = ServingEngine(cfg, params, max_slots=SERVE_SLOTS, max_seq=max_seq)
 
-    reqs = make_requests(np.random.default_rng(0), SERVE_REQUESTS,
-                         SERVE_PROMPT, SERVE_NEW, cfg.vocab_size)
+    reqs = make(np.random.default_rng(0), cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     ticks, step_s = 0, 0.0
@@ -505,7 +642,7 @@ def serve_full() -> dict:
         ticks += active > 0
 
     t0 = time.perf_counter()
-    half = SERVE_REQUESTS // 2
+    half = len(reqs) // 2
     for r in reqs[:half]:
         engine.submit(r)
     for _ in range(3):
@@ -516,24 +653,24 @@ def serve_full() -> dict:
         tick()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"rmsnorm": rms_kernel.LAUNCHES, "flash": flash_kernel.LAUNCHES,
-                "mandelbrot": mandel_kernel.LAUNCHES}
+    launches = {name: module.LAUNCHES for name, module in KERNELS.items()}
     done = engine.shutdown()
 
     prefills = len(done)
     prompt_lens = [c.prompt_len for c in sorted(done, key=lambda c: c.rid)]
     gen = [t for c in done for t in c.tokens[c.prompt_len:]]
-    n_layers = cfg.num_layers
-    expected = {"rmsnorm": (2 * n_layers + 1) * (prefills + ticks),
-                "flash": n_layers * prefills, "mandelbrot": 0}
+    expected = expected_launches(cfg, prefills, ticks)
     lat = sorted(c.latency_s for c in done)
     decode_ms = engine.timing.node("host").run_ms
     summary = {
-        "phase": "serve", "arch": SERVE_ARCH, "num_layers": n_layers,
+        "phase": phase, "arch": arch, "num_layers": cfg.num_layers,
+        "layer_kinds": cfg.layer_counts(),
         "d_model": cfg.d_model, "params": count_params(specs),
         "weights_dtype": "bfloat16", "init_params_s": init_s,
-        "requests": prefills, "slots": SERVE_SLOTS, "max_seq": SERVE_MAX_SEQ,
-        "prompt_lens": prompt_lens, "generated_tokens": len(gen),
+        "requests": prefills, "slots": SERVE_SLOTS, "max_seq": max_seq,
+        "prompt_lens": prompt_lens,
+        "prompts_past_window": sum(n > cfg.window_size > 0 for n in prompt_lens),
+        "generated_tokens": len(gen),
         "wall_s": wall_s, "tokens_per_s": len(gen) / wall_s,
         "latency_p50_s": lat[len(lat) // 2],
         "latency_p99_s": lat[math.ceil(0.99 * len(lat)) - 1],
@@ -545,14 +682,15 @@ def serve_full() -> dict:
     }
     emit(summary)
     print(engine.timing.report(), flush=True)
-    if len(done) != SERVE_REQUESTS or len(gen) != SERVE_REQUESTS * SERVE_NEW:
-        raise SystemExit(f"served {len(done)} requests, {len(gen)} tokens")
+    if len(done) != len(reqs) or len(gen) != len(reqs) * SERVE_NEW:
+        raise SystemExit(f"{arch}: served {len(done)} requests, {len(gen)} tokens")
     if not all(0 <= t < cfg.vocab_size for t in gen):
-        raise SystemExit("a generated token lies outside [0, vocab)")
+        raise SystemExit(f"{arch}: a generated token lies outside [0, vocab)")
     if launches != expected:
-        raise SystemExit(f"kernel launches {launches} != expected {expected}")
+        raise SystemExit(f"{arch}: kernel launches {launches} != expected {expected}")
     del engine
-    profile_serve(cfg, params, reqs, wall_s)
+    if profile:
+        profile_serve(cfg, params, reqs, wall_s, max_seq, phase + "_profile")
     del params
     torch.cuda.empty_cache()
     return {"cfg": cfg, "prompt_lens": prompt_lens, "ticks": ticks,
@@ -572,7 +710,8 @@ def kernel_events(prof) -> tuple[dict[str, float], int]:
     return kernel_us, count
 
 
-def profile_serve(cfg, params, reqs, serve_wall_s: float) -> None:
+def profile_serve(cfg, params, reqs, serve_wall_s: float, max_seq: int,
+                  phase: str) -> None:
     """Where the serve phase's time goes, from torch.profiler's kernel events.
 
     The same requests again give each kernel's device time; one decode tick
@@ -583,8 +722,7 @@ def profile_serve(cfg, params, reqs, serve_wall_s: float) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    engine = ServingEngine(cfg, params, max_slots=SERVE_SLOTS,
-                           max_seq=SERVE_MAX_SEQ)
+    engine = ServingEngine(cfg, params, max_slots=SERVE_SLOTS, max_seq=max_seq)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for r in reqs:
@@ -599,14 +737,14 @@ def profile_serve(cfg, params, reqs, serve_wall_s: float) -> None:
         return sum(us for k, us in kernel_us.items() if word in k) / 1e3
 
     mean_prompt = round(statistics.mean(len(r.prompt) for r in reqs))
-    cache = lm.init_cache(cfg, SERVE_SLOTS, SERVE_MAX_SEQ, device="cuda")
+    cache = lm.init_cache(cfg, SERVE_SLOTS, max_seq, device="cuda")
     tokens = torch.ones((SERVE_SLOTS, 1), dtype=torch.int64, device="cuda")
     lens = torch.full((SERVE_SLOTS,), mean_prompt, device="cuda")
     prompt = torch.ones((1, mean_prompt), dtype=torch.int64, device="cuda")
     alone = {}
     for name, fn in (
         ("decode_tick", lambda: lm.decode_step(cfg, params, cache, tokens, lens)),
-        ("prefill", lambda: lm.prefill(cfg, params, prompt, SERVE_MAX_SEQ)),
+        ("prefill", lambda: lm.prefill(cfg, params, prompt, max_seq)),
     ):
         fn()  # warm-up
         torch.cuda.synchronize()
@@ -616,78 +754,170 @@ def profile_serve(cfg, params, reqs, serve_wall_s: float) -> None:
         us, n = kernel_events(one)
         alone[f"{name}_device_ms"] = sum(us.values()) / 1e3
         alone[f"{name}_kernels"] = n
-    emit({"phase": "serve_profile", "profiled_wall_s": wall_s,
+    emit({"phase": phase, "arch": cfg.name, "profiled_wall_s": wall_s,
           "kernel_device_ms": total_ms, "kernels": kernels,
           "device_busy_share_profiled": total_ms / 1e3 / wall_s,
           "device_busy_share_of_serve_wall": total_ms / 1e3 / serve_wall_s,
           "rmsnorm_kernel_ms": share("rmsnorm_kernel"),
           "flash_kernel_ms": share("flash_kernel"),
+          "rglru_kernel_ms": share("rglru_kernel"),
           "top_kernels": [[k[:80], us / 1e3] for k, us in sorted(
               kernel_us.items(), key=lambda kv: -kv[1])[:10]],
           "prefill_tokens": mean_prompt, **alone})
 
 
-def kernel_rows(serve: dict, rms_err: float, flash_err: float) -> list[dict]:
-    """Time the serve phase's kernel work again, launch for launch, beside
-    the plain version and a library call at the same shapes."""
+def visible_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal, optionally windowed, prompt attends."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def rmsnorm_work(serve, gen):
+    """The serve phase's RMS-norm launches: [S, D] per prefill pass, [slots,
+    D] per tick, bf16 rows and scale."""
     cfg = serve["cfg"]
-    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
-    D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    per_pass = 2 * cfg.num_layers + 1
-    bf16 = torch.bfloat16
-    gen = torch.Generator("cuda").manual_seed(3)
-    # RMS norm: [S, D] per prefill pass, [slots, D] per tick, scale in bf16.
+    D, per_pass, bf16 = cfg.d_model, 2 * cfg.num_layers + 1, torch.bfloat16
     rows = [s for s in serve["prompt_lens"] for _ in range(per_pass)]
     rows += [SERVE_SLOTS] * (per_pass * serve["ticks"])
     scale = (0.2 * torch.randn((D,), generator=gen, device="cuda")).to(bf16)
     xs = {n: torch.randn((n, D), generator=gen, device="cuda").to(bf16)
           for n in set(rows)}
     weight = (1.0 + scale.float()).to(bf16)
-    rms_calls = {
+    calls = {
         "ms": [lambda n=n: rms_kernel.rms_norm_cuda(xs[n], scale) for n in rows],
         "plain_ms": [lambda n=n: rms_norm_reference(xs[n], scale) for n in rows],
         "library_ms": [lambda n=n: F.rms_norm(xs[n], (D,), weight, cfg.norm_eps)
                        for n in rows],
     }
-    rms_bytes = sum(2 * n * D * 2 + D * 2 for n in rows)
-    # Flash: one [1, H, S, hd] causal launch per layer per prefill, read in
-    # place from [1, S, H, hd].
-    lens = [s for s in serve["prompt_lens"] for _ in range(cfg.num_layers)]
-    qkv = {s: flash_inputs(1, H, KV, s, s, hd, bf16, gen, True)
-           for s in set(lens)}
-    flash_calls = {
-        "ms": [lambda s=s: flash_kernel.flash_attention_cuda(*qkv[s]) for s in lens],
-        "plain_ms": [lambda s=s: flash_plain(*qkv[s], True, 0) for s in lens],
-        "library_ms": [lambda s=s: F.scaled_dot_product_attention(
-            *qkv[s], is_causal=True, enable_gqa=True) for s in lens],
-    }
-    flash_flops = sum(4 * H * hd * s * (s + 1) // 2 for s in lens)
-    flash_bytes = sum(2 * s * (2 * H + 2 * KV) * hd for s in lens)
+    nbytes = sum(2 * n * D * 2 + D * 2 for n in rows)
+    return calls, 0.0, nbytes / HBM_BYTES_PER_S * 1e3
 
+
+def flash_work(serve, gen):
+    """The serve phase's flash launches: one [1, H, S, hd] causal launch per
+    attention layer per prefill (windowed for ``local``), read in place from
+    [1, S, H, hd]."""
+    cfg = serve["cfg"]
+    H, KV, hd, bf16 = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, torch.bfloat16
+    launches = []
+    for kind, n in cfg.layer_counts().items():
+        if kind != "rec":
+            window = cfg.window_size if kind == "local" else 0
+            launches += [(s, window) for s in serve["prompt_lens"] for _ in range(n)]
+    qkv = {s: flash_inputs(1, H, KV, s, s, hd, bf16, gen, True)
+           for s in {s for s, _ in launches}}
+    # The library call takes a band mask where the window cuts the prompt.
+    masks = {(s, w): torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
+             .triu(-(w - 1)) for s, w in set(launches) if 0 < w < s}
+
+    def library(s, w):
+        if (s, w) in masks:
+            return F.scaled_dot_product_attention(
+                *qkv[s], attn_mask=masks[(s, w)], enable_gqa=True)
+        return F.scaled_dot_product_attention(*qkv[s], is_causal=True,
+                                              enable_gqa=True)
+
+    calls = {
+        "ms": [lambda s=s, w=w: flash_kernel.flash_attention_cuda(
+            *qkv[s], causal=True, window=w) for s, w in launches],
+        "plain_ms": [lambda s=s, w=w: flash_plain(*qkv[s], True, w)
+                     for s, w in launches],
+        "library_ms": [lambda s=s, w=w: library(s, w) for s, w in launches],
+    }
+    flops = sum(4 * H * hd * visible_pairs(s, w) for s, w in launches)
+    nbytes = sum(2 * s * (2 * H + 2 * KV) * hd for s, _ in launches)
+    return (calls, flops / BF16_FLOPS_PER_S * 1e3,
+            nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def rglru_work(serve, gen):
+    """The serve phase's RG-LRU launches: a and bx [1, S, W] in f32 per rec
+    layer per prefill; [slots, 1, W] with the f32 state h0 per rec layer per
+    tick.  The plain version launches three kernels a time step, so its
+    prefill calls fill the launch queue and its replay is paced by the host
+    (``spun_device_ms``)."""
+    cfg = serve["cfg"]
+    W, rec = cfg.rnn_width or cfg.d_model, cfg.layer_counts().get("rec", 0)
+    lens = serve["prompt_lens"]
+    a_p, b_p = model_gates(1, max(lens), W, gen, seed=1)
+    a_t, b_t = model_gates(SERVE_SLOTS, 1, W, gen, seed=2)
+    h0 = torch.randn((SERVE_SLOTS, W), generator=gen, device="cuda")
+    one_layer = [(a_p[:, :s], b_p[:, :s], None) for s in lens]
+    one_layer += [(a_t, b_t, h0)] * serve["ticks"]
+    calls = {
+        "ms": [lambda c=c: rglru_kernel.rglru_scan_cuda(*c)
+               for c in one_layer * rec],
+        "plain_ms": [lambda c=c: rglru_scan_reference(*c)
+                     for c in one_layer * rec],
+        "library_ms": None,  # no PyTorch call computes a linear recurrence
+    }
+    elems = (sum(lens) + SERVE_SLOTS * serve["ticks"]) * W * rec
+    nbytes = 12 * elems + 4 * W * rec * (len(lens) + 2 * SERVE_SLOTS * serve["ticks"])
+    return (calls, 2 * elems / FP32_FLOPS_PER_S * 1e3,
+            nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def kernel_rows(serves: dict, errs: dict) -> list[dict]:
+    """Time the serve phases' kernel work again, launch for launch, beside
+    the plain version and a library call at the same shapes.  A kernel's
+    row sums over the serving paths that launch it; ``host_paced`` lists
+    the times whose replay the host may have paced (``spun_device_ms``)."""
+    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    gen = torch.Generator("cuda").manual_seed(3)
     out = []
-    for name, src, replaces, calls, err, launches, ops_ms, bytes_ms in (
-        ("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
-         "src/repro/kernels/rmsnorm/kernel.py:21", rms_calls, rms_err,
-         serve["launches"]["rmsnorm"], 0.0, rms_bytes / HBM_BYTES_PER_S * 1e3),
-        ("flash_attention_forward",
+    for name, key, src, replaces, work in (
+        ("rmsnorm", "rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+         "src/repro/kernels/rmsnorm/kernel.py:21", rmsnorm_work),
+        ("flash_attention_forward", "flash",
          "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention/kernel.py:32", flash_calls,
-         flash_err, serve["launches"]["flash"],
-         flash_flops / BF16_FLOPS_PER_S * 1e3,
-         flash_bytes / HBM_BYTES_PER_S * 1e3),
+         "src/repro/kernels/flash_attention/kernel.py:32", flash_work),
+        ("rglru_scan", "rglru", "src/repro_torch/kernels/rglru/csrc/rglru.cu",
+         "src/repro/kernels/rglru/kernel.py:32", rglru_work),
     ):
-        times = {}
-        for key in ("ms", "plain_ms", "library_ms"):
-            spun_device_ms(calls[key][:CALL_CHUNK], clock_hz)  # warm-up
-            times[key] = spun_device_ms(calls[key], clock_hz)
-        emit({"phase": "kernel_time", "kernel": name, "launches": len(calls["ms"]),
-              **times, "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms})
+        total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ops_ms": 0.0,
+                 "bytes_ms": 0.0, "launches": 0}
+        host_paced = set()
+        for arch, serve in serves.items():
+            if not serve["launches"][key]:
+                continue
+            calls, ops_ms, bytes_ms = work(serve, gen)
+            times, paced = {}, []
+            for k, fns in calls.items():
+                if fns is None:
+                    times[k] = None
+                    continue
+                # Warm-up: every call once, so every shape has been seen
+                # (cuDNN's attention, which SDPA may pick, builds a plan on
+                # a shape's first call).
+                for fn in fns:
+                    fn()
+                torch.cuda.synchronize()
+                times[k], by_host = spun_device_ms(fns, clock_hz)
+                if by_host:
+                    paced.append(k)
+            emit({"phase": "kernel_time", "kernel": name, "arch": arch,
+                  "launches": len(calls["ms"]), **times, "host_paced": paced,
+                  "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms})
+            if len(calls["ms"]) != serve["launches"][key]:
+                raise SystemExit(f"{name}: replayed {len(calls['ms'])} launches, "
+                                 f"the serve phase made {serve['launches'][key]}")
+            for k in ("ms", "plain_ms", "library_ms"):
+                total[k] = None if times[k] is None or total[k] is None \
+                    else total[k] + times[k]
+            total["ops_ms"] += ops_ms
+            total["bytes_ms"] += bytes_ms
+            total["launches"] += serve["launches"][key]
+            host_paced.update(paced)
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": times["ms"],
-            "plain_ms": times["plain_ms"], "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": times["library_ms"],
+            "launches": total["launches"], "max_abs_err": errs[key],
+            "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": max(total["ops_ms"], total["bytes_ms"]),
+            "bound_by": "operations" if total["ops_ms"] >= total["bytes_ms"]
+            else "bytes",
+            "library_ms": total["library_ms"],
+            "host_paced": sorted(host_paced),
         })
     return out
 

@@ -1,0 +1,91 @@
+"""RG-LRU scan as a CUDA kernel for Hopper.
+
+The kernel is ``csrc/rglru.cu`` (see the note at its head); it replaces the
+TPU kernel ``_rglru_kernel`` of the JAX package.  This module builds it at
+first use, binds its C entry point with ctypes and launches it on
+PyTorch's current stream.  ``LAUNCHES`` counts the launches, so a run can
+show that its work went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._build import load_library
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru.cu"
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+NO_H0 = -1  # the dtype code that says h0 is absent (zeros)
+MAX_BATCH = 65535  # the grid's y dimension
+
+LAUNCHES = 0
+_count_lock = threading.Lock()
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Build (first call only) and bind the kernel's library."""
+    lib = load_library(SOURCE)
+    fn = lib.rglru_launch
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i32, i32, i32, ptr]
+    fn.restype = ctypes.c_int
+    lib.rglru_error_string.argtypes = [ctypes.c_int]
+    lib.rglru_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, dim: int) -> None:
+    if (not t.is_cuda or t.dtype not in DTYPE_CODES or t.dim() != dim
+            or not t.is_contiguous()):
+        raise ValueError(
+            f"{name} must be a contiguous {dim}-D float32 or bfloat16 CUDA "
+            f"tensor, got {t.dim()}-D {t.dtype} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")
+
+
+def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
+                    h0: torch.Tensor | None = None):
+    """a, b: [B, S, W] contiguous CUDA tensors, each f32 or bf16; h0: [B, W]
+    (f32 or bf16) or None.  Returns (h in ``a.dtype``, h_last in f32)."""
+    global LAUNCHES
+    _check("a", a, 3)
+    _check("b", b, 3)
+    B, S, W = a.shape
+    if b.shape != a.shape or b.device != a.device:
+        raise ValueError(
+            f"a {tuple(a.shape)} on {a.device} and b {tuple(b.shape)} on "
+            f"{b.device} must share shape and device")
+    if h0 is not None:
+        _check("h0", h0, 2)
+        if h0.shape != (B, W) or h0.device != a.device:
+            raise ValueError(
+                f"h0 must be [{B}, {W}] on {a.device}, got {tuple(h0.shape)} "
+                f"on {h0.device}")
+    if B > MAX_BATCH:
+        raise ValueError(f"at most {MAX_BATCH} rows, got {B}")
+    h = torch.empty_like(a)
+    h_last = torch.empty((B, W), dtype=torch.float32, device=a.device)
+    if B == 0 or W == 0:
+        return h, h_last
+    lib = load()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rglru_launch(
+            a.data_ptr(), b.data_ptr(),
+            None if h0 is None else h0.data_ptr(), h.data_ptr(),
+            h_last.data_ptr(), B, S, W, DTYPE_CODES[a.dtype],
+            DTYPE_CODES[b.dtype],
+            NO_H0 if h0 is None else DTYPE_CODES[h0.dtype], stream)
+    if err != 0:
+        raise RuntimeError(
+            "rglru kernel launch failed: "
+            + lib.rglru_error_string(err).decode())
+    with _count_lock:
+        LAUNCHES += 1
+    return h, h_last

@@ -21,7 +21,7 @@ from repro_torch.device import resolve_device
 class ParamSpec:
     shape: tuple[int, ...]
     logical_axes: tuple[str | None, ...]
-    init: str = "normal"  # normal | zeros
+    init: str = "normal"  # normal | zeros | rglru_lambda
     stddev: float = 0.02
 
     def __post_init__(self) -> None:
@@ -60,16 +60,26 @@ def _path_hash(path: str) -> int:
     return h
 
 
+def rglru_lambda_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Griffin's Lambda from forget rates ``u`` in (0.9, 0.999): the value
+    with ``softplus(Lambda) = -log(u) / c * 100`` (c = 8), in float32."""
+    return torch.log(torch.expm1(-torch.log(u) * (1.0 / 8.0) * 100.0) + 1e-8)
+
+
 def _init_leaf(spec: ParamSpec, seed: int, path: str, device: torch.device,
                dtype: torch.dtype) -> torch.Tensor:
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
-    if spec.init == "normal":
-        gen = torch.Generator(device)
-        gen.manual_seed(seed * 2**31 + _path_hash(path))
-        out = torch.randn(spec.shape, generator=gen, dtype=dtype, device=device)
-        return out.mul_(spec.stddev)
-    raise ValueError(f"unknown init {spec.init!r}")
+    if spec.init not in ("normal", "rglru_lambda"):
+        raise ValueError(f"unknown init {spec.init!r}")
+    gen = torch.Generator(device)
+    gen.manual_seed(seed * 2**31 + _path_hash(path))
+    if spec.init == "rglru_lambda":
+        u = torch.rand(spec.shape, generator=gen, dtype=torch.float32,
+                       device=device) * (0.999 - 0.9) + 0.9
+        return rglru_lambda_from_uniform(u).to(dtype)
+    out = torch.randn(spec.shape, generator=gen, dtype=dtype, device=device)
+    return out.mul_(spec.stddev)
 
 
 def init_params(spec_tree: Any, seed: int = 0, device=None,

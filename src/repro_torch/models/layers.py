@@ -49,6 +49,6 @@ def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor, compute_dtype):
 def lm_logits(x: torch.Tensor, head: torch.Tensor, compute_dtype,
               softcap: float = 0.0) -> torch.Tensor:
     logits = x.to(compute_dtype) @ head.to(compute_dtype)
-    if softcap > 0:
+    if softcap > 0:  # in f32, as the JAX package's layers.lm_logits
         logits = softcap * torch.tanh(logits.float() / softcap)
     return logits

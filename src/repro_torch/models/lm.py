@@ -1,18 +1,21 @@
-"""Decoder-only language model: the dense path of the JAX package's
-``models/lm.py`` at ``tp=1``.
+"""Decoder-only language model: the dense and recurrent paths of the JAX
+package's ``models/lm.py`` at ``tp=1``.
 
 The layer pattern of the config decides which blocks exist and in which
-order.  This port runs the attention kinds: ``attn`` (full causal),
-``local`` (sliding window, ring-buffer cache) and ``global``, each with a
-SwiGLU MLP.  The other kinds (``moe``, ``rec``, ``mlstm``, ``slstm``) raise
+order.  This port runs the attention kinds ``attn`` (full causal),
+``local`` (sliding window, ring-buffer cache) and ``global``, and the
+Griffin recurrent kind ``rec`` (``models/recurrent.py``), each with a
+SwiGLU MLP.  The other kinds (``moe``, ``mlstm``, ``slstm``) raise
 ``NotImplementedError``; ROADMAP queue 1 names the slice that ports them.
 
 Parameters are the JAX package's tree: per block kind, each leaf is stacked
 ``[count, ...]`` over that kind's layers.  Layers run as a plain Python
 loop (no scan, no remat).  Every block calls the fused RMS norm twice
 (``ln1``, ``ln2``) and the forward ends in ``final_norm``; the prompt's
-attention goes through the flash-attention entry point.  Decode writes the
-new token's K/V into the cache in place and returns the same cache.
+attention goes through the flash-attention entry point and a ``rec``
+block's recurrence through the RG-LRU scan's, in prefill and decode alike.
+Decode writes the new token's K/V, and a ``rec`` layer's state (``h`` and
+``conv``), into the cache in place and returns the same cache.
 """
 
 from __future__ import annotations
@@ -25,20 +28,20 @@ import torch
 from repro_torch.configs.base import ModelConfig, padded_size
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.common import ParamSpec, fan_in_normal
 from repro_torch.models.layers import embed_tokens, lm_logits, mlp_specs, rms_norm, swiglu
 
 ATTN_KINDS = ("attn", "local", "global")
 _NOT_PORTED = {  # kind -> (blocks, the ROADMAP queue 1 item that ports them)
     "moe": ("MoE blocks", "the other block families"),
-    "rec": ("recurrent (RG-LRU) blocks", "the recurrent block family"),
     "mlstm": ("xLSTM blocks", "the other block families"),
     "slstm": ("xLSTM blocks", "the other block families"),
 }
 
 
 def _check_kind(kind: str) -> None:
-    if kind in ATTN_KINDS:
+    if kind in ATTN_KINDS or kind == "rec":
         return
     if kind in _NOT_PORTED:
         blocks, item = _NOT_PORTED[kind]
@@ -99,7 +102,16 @@ def _attn_specs(cfg: ModelConfig, n: int) -> dict:
 
 def _block_specs(cfg: ModelConfig, kind: str, n: int) -> dict:
     _check_kind(kind)
-    specs = _attn_specs(cfg, n)
+    if kind == "rec":
+        specs = {
+            "ln1": ParamSpec((n, cfg.d_model), ("layers", "d_model"),
+                             init="zeros"),
+            "rec": rec_mod.recurrent_block_specs(
+                n, cfg.d_model, cfg.rnn_width or cfg.d_model,
+                cfg.conv1d_width),
+        }
+    else:
+        specs = _attn_specs(cfg, n)
     if cfg.d_ff > 0:
         specs["ln2"] = ParamSpec((n, cfg.d_model), ("layers", "d_model"),
                                  init="zeros")
@@ -183,21 +195,41 @@ def _attention_part(cfg, p, x, positions, *, kind, cache=None, cache_len=None,
     return out.to(x.dtype), state
 
 
+def _recurrent_part(cfg, p, x, *, cache=None):
+    """Recurrent sub-block.  Returns (rec_out, state).
+
+    ``cache`` (decode): {"h", "conv"} views into the stacked cache; the new
+    state is written into them in place.  Without it (a whole prompt), the
+    state is the one the prompt leaves behind.
+    """
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    out, state = rec_mod.recurrent_block(
+        p["rec"], h, compute_dtype=_dtype(cfg.compute_dtype), state=cache)
+    if cache is not None:
+        for name, leaf in state.items():
+            cache[name].copy_(leaf)
+        state = cache
+    return out, state
+
+
 def apply_block(cfg, kind, p, x, positions, *, cache=None, cache_len=None,
                 return_state=False):
     """One residual block of the given kind.  Returns (x, new_cache)."""
     _check_kind(kind)
     cdt = _dtype(cfg.compute_dtype)
-    attn_out, new_kv = _attention_part(
-        cfg, p, x, positions, kind=kind, cache=cache, cache_len=cache_len,
-        return_state=return_state,
-    )
-    x = x + attn_out
+    if kind == "rec":
+        mix_out, state = _recurrent_part(cfg, p, x, cache=cache)
+    else:
+        mix_out, state = _attention_part(
+            cfg, p, x, positions, kind=kind, cache=cache, cache_len=cache_len,
+            return_state=return_state,
+        )
+    x = x + mix_out
     if cfg.d_ff > 0:
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
                        p["mlp"]["w_down"], cdt).to(x.dtype)
-    return x, new_kv
+    return x, state
 
 
 def _layer(tree, i: int):
@@ -252,12 +284,24 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int, dtype=None) -> dict:
     if dtype is None:
         dtype = _dtype(cfg.compute_dtype)
     hp = head_plan(cfg, 1)
+    width = cfg.rnn_width or cfg.d_model
     kv_axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
     spec: dict[str, Any] = {}
     for kind, n in cfg.layer_counts().items():
         _check_kind(kind)
+        if kind == "rec":
+            # The carried state h is float32 whatever the compute dtype.
+            spec[kind] = {
+                "h": ((n, batch, width), torch.float32,
+                      ("layers", "batch", "rnn_state"), 0.0),
+                "conv": ((n, batch, cfg.conv1d_width - 1, width), dtype,
+                         ("layers", "batch", None, "rnn_state"), 0.0),
+            }
+            continue
         # ``local`` layers ring-buffer exactly ``window`` slots: every
         # resident token is then within the window of the current query.
+        # The prompt's flash window keeps key k where k > q - window: the
+        # same last ``window`` positions, so prefill and decode agree.
         seq = max_seq if kind != "local" else min(max_seq, cfg.window_size)
         shp = (n, batch, seq, hp["Kp"], cfg.head_dim)
         spec[kind] = {"k": (shp, dtype, kv_axes, 0.0),
@@ -267,7 +311,8 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int, dtype=None) -> dict:
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> dict:
-    """K/V per attention kind, stacked over that kind's layer count."""
+    """K/V per attention kind and h/conv for ``rec``, stacked over that
+    kind's layer count."""
     dev = resolve_device(device)
     return {
         kind: {name: torch.full(shp, fill, dtype=dt, device=dev)
@@ -295,15 +340,24 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int):
-    """Run the full prompt, returning (last-token logits, filled cache)."""
+    """Run the full prompt, returning (last-token logits, filled cache).
+
+    Only ``attn`` and ``global`` layers cache ``max_seq`` positions, so
+    only they refuse a longer prompt: ``local`` layers keep the last
+    ``window`` positions of a ring and ``rec`` layers a fixed-size state.
+    """
     B, S = tokens.shape
-    if S > max_seq and set(cfg.layer_counts()) - {"local"}:
+    if S > max_seq and {"attn", "global"} & set(cfg.layer_counts()):
         raise ValueError(f"prompt of {S} tokens exceeds max_seq {max_seq}")
     cache = init_cache(cfg, B, max_seq, device=tokens.device)
     x = _embed(cfg, params, tokens)
     positions = torch.arange(S, device=tokens.device)
     for kind, p, i in _layers(cfg, params):
         x, st = apply_block(cfg, kind, p, x, positions, return_state=True)
+        if kind == "rec":
+            for name, leaf in st.items():
+                cache[kind][name][i].copy_(leaf)
+            continue
         for name in ("k", "v"):
             dst = cache[kind][name][i]  # [B, size, KV, hd]
             size = dst.shape[1]

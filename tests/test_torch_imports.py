@@ -46,6 +46,10 @@ def test_every_port_module_imports_without_jax_triton_or_repro():
                  "repro_torch.kernels.rmsnorm.ops",
                  "repro_torch.kernels.flash_attention.kernel",
                  "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.rglru.kernel",
+                 "repro_torch.kernels.rglru.ops",
+                 "repro_torch.kernels.rglru.ref",
+                 "repro_torch.models.recurrent",
                  "repro_torch.configs.registry", "repro_torch.models.common",
                  "repro_torch.models.convert", "repro_torch.models.layers",
                  "repro_torch.models.attention", "repro_torch.models.lm",

@@ -1,7 +1,9 @@
-"""The port's dense decoder-only LM against the JAX package's, on the CPU.
+"""The port's decoder-only LM (dense and recurrent) against the JAX
+package's, on the CPU.
 
 Parameters come from the JAX package's ``init_params`` (with random, nonzero
-RMS-norm scales, so that ``1 + scale`` is exercised) and cross as numpy
+RMS-norm scales, so that ``1 + scale`` is exercised, and random RG-LRU gate
+biases ``b_a``/``b_x``) and cross as numpy
 through ``params_from_numpy``; tokens come from numpy.  Both run with
 ``compute_dtype="float32"``.  Logits must agree within 2e-4, the tolerance
 of the JAX package's own decode-vs-forward test (``tests/test_archs.py``).
@@ -40,8 +42,11 @@ from repro_torch.runtime import steps
 LOGIT_TOL = 2e-4
 LAYER_TOL = 1e-5
 DENSE = ["yi-9b", "phi3-medium-14b", "command-r-35b", "gemma3-4b"]
-NOT_PORTED = ["recurrentgemma-2b", "olmoe-1b-7b", "llama4-maverick-400b-a17b",
-              "xlstm-350m"]
+PORTED = DENSE + ["recurrentgemma-2b"]
+NOT_PORTED = ["olmoe-1b-7b", "llama4-maverick-400b-a17b", "xlstm-350m"]
+# Prompt lengths: recurrentgemma's is longer than its smoke window of 32,
+# so the local layers' ring wraps.
+PROMPT_LEN = {"recurrentgemma-2b": 46}
 
 
 def _configs(name):
@@ -59,7 +64,7 @@ def _shared_params(jcfg, seed=0):
     def norms(node, key=""):
         if isinstance(node, dict):
             return {k: norms(v, k) for k, v in node.items()}
-        if key in ("ln1", "ln2", "final_norm", "q_norm", "k_norm"):
+        if key in ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "b_a", "b_x"):
             return (0.2 * rng.standard_normal(node.shape)).astype(np.float32)
         return node
 
@@ -100,7 +105,7 @@ def _leaf_rows(leaves):
     return [(p, s.shape, s.logical_axes, s.init, s.stddev) for p, s in leaves]
 
 
-@pytest.mark.parametrize("name", DENSE + ["internvl2-2b"])
+@pytest.mark.parametrize("name", PORTED + ["internvl2-2b"])
 def test_param_specs_equal_the_jax_package_at_tp1(name):
     specs = lm.lm_param_specs(get_config(name))
     jspecs = jax_lm.lm_param_specs(jax_get_config(name), 1)
@@ -112,6 +117,16 @@ def test_param_specs_equal_the_jax_package_at_tp1(name):
 def test_yi_9b_at_full_width_has_its_published_size():
     n = count_params(lm.lm_param_specs(get_config("yi-9b")))
     assert 8.8e9 < n < 8.9e9  # 17.7 GB in bf16
+
+
+def test_recurrentgemma_2b_at_full_width_has_its_size():
+    specs = lm.lm_param_specs(get_config("recurrentgemma-2b"))
+    n = count_params(specs)
+    assert 3.30e9 < n < 3.32e9  # 6.6 GB in bf16; untied embedding and head
+    assert n == jax_count_params(
+        jax_lm.lm_param_specs(jax_get_config("recurrentgemma-2b"), 1))
+    assert set(specs["blocks"]) == {"rec", "local"}
+    assert specs["blocks"]["rec"]["rec"]["rglru"]["lambda"].shape == (18, 2560)
 
 
 @pytest.mark.parametrize("name", NOT_PORTED + ["seamless-m4t-large-v2"])
@@ -200,11 +215,11 @@ def test_decode_attention_with_a_length_per_row_matches_jax():
 # -- the model: forward, prefill, decode ---------------------------------------------
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", PORTED)
 def test_prefill_and_decode_logits_match_jax(name):
     jcfg, cfg = _configs(name)
     jp, tp = _shared_params(jcfg)
-    B, S = 2, 33
+    B, S = 2, PROMPT_LEN.get(name, 33)
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
     jt = jnp.asarray(toks, jnp.int32)
     tt = torch.from_numpy(toks)
@@ -216,22 +231,36 @@ def test_prefill_and_decode_logits_match_jax(name):
     jl, jcache = jax_lm.prefill(jcfg, jp, jt[:, :S - 1], max_seq=S + 8)
     tl, tcache = lm.prefill(cfg, tp, tt[:, :S - 1], S + 8)
     _close(tl, jl, LOGIT_TOL)
-    for kind in jcache:
-        for leaf in ("k", "v"):
-            _close(tcache[kind][leaf], jcache[kind][leaf], LOGIT_TOL)
+    _caches_close(tcache, jcache)
 
     # one step at a common length (int), then per-row lengths ([B] tensor)
     jd, jcache = jax_lm.decode_step(jcfg, jp, jcache, jt[:, S - 1:],
                                     jnp.int32(S - 1))
-    td, tcache = lm.decode_step(cfg, tp, tcache, tt[:, S - 1:], S - 1)
+    td, same = lm.decode_step(cfg, tp, tcache, tt[:, S - 1:], S - 1)
+    assert same is tcache  # every leaf written in place
     _close(td, jd, LOGIT_TOL)
+    _caches_close(tcache, jcache)
     nxt = np.array(jnp.argmax(jd[:, 0, : cfg.vocab_size], axis=-1))[:, None]
     lens = np.array([S, S])
-    jd2, _ = jax_lm.decode_step(jcfg, jp, jcache, jnp.asarray(nxt, jnp.int32),
-                                jnp.asarray(lens, jnp.int32))
-    td2, _ = lm.decode_step(cfg, tp, tcache, torch.from_numpy(nxt),
-                            torch.from_numpy(lens))
+    jd2, jcache = jax_lm.decode_step(jcfg, jp, jcache,
+                                     jnp.asarray(nxt, jnp.int32),
+                                     jnp.asarray(lens, jnp.int32))
+    td2, tcache = lm.decode_step(cfg, tp, tcache, torch.from_numpy(nxt),
+                                 torch.from_numpy(lens))
     _close(td2, jd2, LOGIT_TOL)
+    _caches_close(tcache, jcache)
+
+
+def _caches_close(tcache, jcache) -> None:
+    """Every leaf (k/v, and h/conv for rec) with its dtype and shape."""
+    assert {k: sorted(v) for k, v in tcache.items()} == \
+           {k: sorted(v) for k, v in jcache.items()}
+    for kind, leaves in jcache.items():
+        for name, want in leaves.items():
+            got = tcache[kind][name]
+            assert tuple(got.shape) == want.shape, (kind, name)
+            assert str(got.dtype).split(".")[-1] == str(want.dtype), (kind, name)
+            _close(got, want, LOGIT_TOL)
 
 
 def test_step_factories_match_jax():
@@ -255,3 +284,16 @@ def test_prefill_refuses_a_prompt_longer_than_the_cache():
     params = init_params(lm.lm_param_specs(cfg), 0, "cpu")
     with pytest.raises(ValueError, match="exceeds max_seq"):
         lm.prefill(cfg, params, torch.zeros((1, 9), dtype=torch.int64), 8)
+
+
+def test_recurrent_prefill_takes_a_prompt_longer_than_max_seq():
+    """rec + local layers hold a fixed-size state and a window-long ring, so
+    a prompt longer than max_seq is computed, as the JAX package does."""
+    jcfg, cfg = _configs("recurrentgemma-2b")
+    jp, tp = _shared_params(jcfg, seed=4)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (1, 45))
+    max_seq = 40  # > the window of 32, < the prompt
+    jl, jcache = jax_lm.prefill(jcfg, jp, jnp.asarray(toks, jnp.int32), max_seq)
+    tl, tcache = lm.prefill(cfg, tp, torch.from_numpy(toks), max_seq)
+    _close(tl, jl, LOGIT_TOL)
+    _caches_close(tcache, jcache)

@@ -1,5 +1,6 @@
 """The port's RMS-norm and flash-attention paths against the JAX package's,
-on the CPU.
+on the CPU, and the no-fallback rules of every serving kernel (the RG-LRU
+scan's own parity tests are in ``test_torch_rglru.py``).
 
 Inputs are made with numpy from a seed and cast to each dtype by each
 framework (both round to nearest even, so the inputs are equal).  On CPU
@@ -24,6 +25,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.mandelbrot import kernel as mandel_kernel
+from repro_torch.kernels.rglru import kernel as rglru_kernel
+from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import ref as rms_ref
@@ -143,19 +146,25 @@ def test_flash_cpu_entry_point_repeats_kv_heads():
     lambda t: rms_kernel.rms_norm_cuda(t, torch.zeros(t.shape[-1])),
     lambda t: flash_kernel.flash_attention_cuda(t[None, None], t[None, None],
                                                 t[None, None]),
-], ids=["rmsnorm", "flash"])
+    lambda t: rglru_kernel.rglru_scan_cuda(t[None], t[None]),
+    lambda t: rglru_kernel.rglru_scan_cuda(t[None], t[None], t[:1]),
+], ids=["rmsnorm", "flash", "rglru", "rglru_h0"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
-    before = (rms_kernel.LAUNCHES, flash_kernel.LAUNCHES)
+    before = (rms_kernel.LAUNCHES, flash_kernel.LAUNCHES, rglru_kernel.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensor"):
         call(torch.zeros(8, 32))
-    assert (rms_kernel.LAUNCHES, flash_kernel.LAUNCHES) == before
+    assert (rms_kernel.LAUNCHES, flash_kernel.LAUNCHES,
+            rglru_kernel.LAUNCHES) == before
 
 
 @pytest.mark.parametrize("call", [
     lambda t: rms_ops.rms_norm(t, torch.zeros(32, device="meta")),
     lambda t: flash_ops.flash_attention(t[None, None], t[None, None],
                                         t[None, None]),
-], ids=["rmsnorm", "flash"])
+    lambda t: rglru_ops.rglru_scan(t[None], t[None]),
+    lambda t: rglru_ops.rglru_scan(torch.zeros(1, 8, 32), torch.zeros(1, 8, 32),
+                                   t[:1]),
+], ids=["rmsnorm", "flash", "rglru", "rglru_h0_off_cpu"])
 def test_entry_points_send_non_cpu_tensors_to_the_kernel(call):
     """A tensor off the CPU never takes the plain version: it reaches the
     kernel's wrapper, which refuses anything but a CUDA tensor."""
@@ -164,10 +173,11 @@ def test_entry_points_send_non_cpu_tensors_to_the_kernel(call):
 
 
 def test_build_flags_are_per_source_and_hashed():
-    sources = (mandel_kernel.SOURCE, rms_kernel.SOURCE, flash_kernel.SOURCE)
+    sources = (mandel_kernel.SOURCE, rms_kernel.SOURCE, flash_kernel.SOURCE,
+               rglru_kernel.SOURCE)
     paths = {_build.library_path(s, f) for s in sources
              for f in ((), ("-fmad=false",))}
-    assert len(paths) == 6  # the flags and the source each change the name
+    assert len(paths) == 8  # the flags and the source each change the name
     assert mandel_kernel.FLAGS == ("-fmad=false",)
     assert "-fmad=false" not in _build.NVCC_FLAGS
     assert all(p.parent == _build.BUILD_DIR for p in paths)

@@ -44,6 +44,11 @@ def _shared(name, seed=0):
             if key in block:
                 block[key] = (0.2 * rng.standard_normal(block[key].shape)
                               ).astype(np.float32)
+        if "rec" in block:  # nonzero RG-LRU gate biases
+            gates = block["rec"]["rglru"]
+            for key in ("b_a", "b_x"):
+                gates[key] = (0.2 * rng.standard_normal(gates[key].shape)
+                              ).astype(np.float32)
     tree["final_norm"] = (0.2 * rng.standard_normal(tree["final_norm"].shape)
                           ).astype(np.float32)
     return jcfg, cfg, jax.tree.map(jnp.asarray, tree), params_from_numpy(tree, "cpu")
@@ -55,7 +60,7 @@ def _requests(vocab, n=7, seed=1):
              int(rng.integers(2, 7))) for rid in range(n)]
 
 
-@pytest.mark.parametrize("name", ["yi-9b", "gemma3-4b"])
+@pytest.mark.parametrize("name", ["yi-9b", "gemma3-4b", "recurrentgemma-2b"])
 def test_engine_tokens_equal_the_jax_engine(name):
     jcfg, cfg, jp, tp = _shared(name)
     reqs = _requests(cfg.vocab_size)
@@ -73,8 +78,11 @@ def test_engine_tokens_equal_the_jax_engine(name):
             {t.node_id: t.items for t in jeng.timing.nodes})
 
 
-def test_engine_equals_offline_greedy_decode():
-    _, cfg, _, tp = _shared("yi-9b", seed=3)
+@pytest.mark.parametrize("name", ["yi-9b", "recurrentgemma-2b"])
+def test_engine_equals_offline_greedy_decode(name):
+    """Slots are spliced in place (K/V, and h/conv for rec) and decoded
+    together; each completion equals its own batch-1 decode."""
+    _, cfg, _, tp = _shared(name, seed=3)
     eng = ServingEngine(cfg, tp, max_slots=2, max_seq=MAX_SEQ)
     for rid, prompt, n_new in _requests(cfg.vocab_size, n=5, seed=4):
         eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n_new))
@@ -104,8 +112,9 @@ def test_serving_engine_demand_driven_idle_slots():
         eng.submit(Request(rid=9, prompt=[1], max_new_tokens=1))
 
 
-def test_cli_and_pipeline_run_on_the_cpu_when_asked(capsys):
-    done = serve_cli.main(["--arch", "yi-9b", "--device", "cpu",
+@pytest.mark.parametrize("arch", ["yi-9b", "recurrentgemma-2b"])
+def test_cli_and_pipeline_run_on_the_cpu_when_asked(capsys, arch):
+    done = serve_cli.main(["--arch", arch, "--device", "cpu",
                            "--requests", "5", "--max-new", "4"])
     assert sorted(c.rid for c in done) == list(range(5))
     assert all(len(c.tokens) - c.prompt_len == 4 for c in done)
