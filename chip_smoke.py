@@ -9,8 +9,9 @@ per source, all at once) and drives the port's paths on the card:
    1,000, 2 clusters x 4 cores) parsed from ``.cgpp``, verified, planned and
    run on the threads backend, every line through the escape-time kernel,
    which is first held against its plain version (exact equality).
-2. LM serving, dense: the fused RMS-norm, flash-attention and RG-LRU scan
-   kernels are held against their plain versions; then ``ServingEngine``
+2. LM serving, dense: the fused RMS-norm, flash-attention (both variants:
+   wgmma for bfloat16, CUDA cores for float32) and RG-LRU scan kernels are
+   held against their plain versions; then ``ServingEngine``
    serves yi-9b at full width, first cut to 4 layers in float32 (every
    completion must equal offline greedy decode), then at full depth (48
    layers, bf16 weights from ``init_params`` on the card), where the
@@ -118,6 +119,16 @@ FLASH_OTHER = [(1, 8, 4, 300, 300, 256, True, 64), (2, 4, 2, 50, 50, 16, True, 3
                (1, 4, 2, 100, 150, 64, False, 0)]
 # recurrentgemma-2b's local attention: MQA, head_dim 256, window 2048 < S.
 FLASH_RG = [(1, 10, 1, 3000, 3000, 256, True, 2048)]
+# The tiled bf16 kernel's edges, in the model's layout: a prompt shorter
+# than one tile at head_dim 128 and 256; a window that is not a multiple of
+# the key tile; recurrentgemma's 10:1 MQA at S = 1,000 (yi-9b's group of 8
+# at S = 1,000 is in FLASH_YI); Skv > Sq without the causal mask; and launches
+# with enough tiles for two consumer warpgroups at the small head dims.
+FLASH_EDGE = [(1, 4, 2, 50, 50, 128, True, 0), (1, 10, 1, 50, 50, 256, True, 2048),
+              (1, 4, 1, 700, 700, 128, True, 100), (1, 10, 1, 700, 700, 256, True, 100),
+              (1, 10, 1, 1000, 1000, 256, True, 2048), (1, 4, 2, 100, 300, 128, False, 0),
+              (2, 16, 8, 640, 640, 64, True, 0), (2, 16, 8, 640, 640, 32, True, 128),
+              (2, 16, 8, 640, 640, 16, True, 0)]
 FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
 # RG-LRU checks (b, s, w): the reference sweep of tests/test_kernels.py, with
 # h0; then the model's shapes, a prefill and a decode tick.
@@ -359,6 +370,10 @@ def main() -> None:
                             lambda rng, vocab: requests_of_lengths(
                                 rng, RG_SERVE_PROMPTS, SERVE_NEW, vocab),
                             profile=True)
+    # serve_full checked each phase's flash launches: all wgmma, none f32.
+    emit({"phase": "flash_variants", "serve_flash_launches": {
+        variant: sum(serve["flash_variants"][variant] for serve in serves.values())
+        for variant in ("wgmma", "f32")}})
     rows = kernel_rows(serves, errs)
     print(card, flush=True)
     emit({"kernels": [mandel_row, *rows]})
@@ -441,11 +456,15 @@ def flash_plain(q, k, v, causal, window):
 
 
 def check_flash() -> float:
-    """Flash-attention kernel against its plain version on the card."""
+    """Flash-attention kernel against its plain version on the card: each
+    case in float32 through the f32 variant and in bfloat16 through the
+    wgmma variant."""
     gen = torch.Generator("cuda").manual_seed(1)
     worst = 0.0
     cases = ([(c, False) for c in FLASH_SWEEP] + [(c, True) for c in FLASH_YI]
-             + [(c, False) for c in FLASH_OTHER] + [(c, True) for c in FLASH_RG])
+             + [(c, False) for c in FLASH_OTHER] + [(c, True) for c in FLASH_RG]
+             + [(c, c[6]) for c in FLASH_EDGE])
+    before = dict(flash_kernel.LAUNCHES_BY_VARIANT)
     for dtype in (torch.float32, torch.bfloat16):
         for (b, h, kv, sq, skv, d, causal, window), layout in cases:
             q, k, v = flash_inputs(b, h, kv, sq, skv, d, dtype, gen, layout)
@@ -466,6 +485,9 @@ def check_flash() -> float:
                     f"flash kernel differs at {(b, h, kv, sq, skv, d)} "
                     f"causal={causal} window={window} {dtype}")
             worst = max(worst, err)
+    ran = {k: n - before[k] for k, n in flash_kernel.LAUNCHES_BY_VARIANT.items()}
+    if ran != {"wgmma": len(cases), "f32": len(cases)}:
+        raise SystemExit(f"flash checks ran {ran}, expected {len(cases)} of each variant")
     return worst
 
 
@@ -598,6 +620,7 @@ KERNELS = {"mandelbrot": mandel_kernel, "rmsnorm": rms_kernel,
 def reset_launches() -> None:
     for module in KERNELS.values():
         module.LAUNCHES = 0
+    flash_kernel.LAUNCHES_BY_VARIANT = dict.fromkeys(flash_kernel.LAUNCHES_BY_VARIANT, 0)
 
 
 def expected_launches(cfg, prefills: int, ticks: int) -> dict[str, int]:
@@ -654,6 +677,7 @@ def serve_full(arch: str, phase: str, max_seq: int, make,
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {name: module.LAUNCHES for name, module in KERNELS.items()}
+    flash_variants = dict(flash_kernel.LAUNCHES_BY_VARIANT)
     done = engine.shutdown()
 
     prefills = len(done)
@@ -678,6 +702,7 @@ def serve_full(arch: str, phase: str, max_seq: int, make,
         "prefill_ms_per_request": (step_s * 1e3 - decode_ms) / prefills,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "expected_launches": expected,
+        "flash_launches_by_variant": flash_variants,
         "timing": engine.timing.summary(),
     }
     emit(summary)
@@ -688,13 +713,16 @@ def serve_full(arch: str, phase: str, max_seq: int, make,
         raise SystemExit(f"{arch}: a generated token lies outside [0, vocab)")
     if launches != expected:
         raise SystemExit(f"{arch}: kernel launches {launches} != expected {expected}")
+    if flash_variants != {"wgmma": expected["flash"], "f32": 0}:
+        raise SystemExit(f"{arch}: bf16 flash launches by variant {flash_variants}, "
+                         f"expected all {expected['flash']} through wgmma")
     del engine
     if profile:
         profile_serve(cfg, params, reqs, wall_s, max_seq, phase + "_profile")
     del params
     torch.cuda.empty_cache()
     return {"cfg": cfg, "prompt_lens": prompt_lens, "ticks": ticks,
-            "launches": launches}
+            "launches": launches, "flash_variants": flash_variants}
 
 
 def kernel_events(prof) -> tuple[dict[str, float], int]:
@@ -896,9 +924,16 @@ def kernel_rows(serves: dict, errs: dict) -> list[dict]:
                 times[k], by_host = spun_device_ms(fns, clock_hz)
                 if by_host:
                     paced.append(k)
+            extra = {}
+            if key == "flash":  # bf16 tensor-core work: its rate and SDPA's
+                extra = {"tflops": ops_ms * BF16_FLOPS_PER_S / times["ms"] / 1e12,
+                         "library_tflops":
+                             ops_ms * BF16_FLOPS_PER_S / times["library_ms"] / 1e12,
+                         "ms_over_library": times["ms"] / times["library_ms"],
+                         "share_of_bound": ops_ms / times["ms"]}
             emit({"phase": "kernel_time", "kernel": name, "arch": arch,
                   "launches": len(calls["ms"]), **times, "host_paced": paced,
-                  "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms})
+                  "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms, **extra})
             if len(calls["ms"]) != serve["launches"][key]:
                 raise SystemExit(f"{name}: replayed {len(calls['ms'])} launches, "
                                  f"the serve phase made {serve['launches'][key]}")
@@ -909,7 +944,7 @@ def kernel_rows(serves: dict, errs: dict) -> list[dict]:
             total["bytes_ms"] += bytes_ms
             total["launches"] += serve["launches"][key]
             host_paced.update(paced)
-        out.append({
+        row = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": total["launches"], "max_abs_err": errs[key],
             "ms": total["ms"], "plain_ms": total["plain_ms"],
@@ -918,7 +953,11 @@ def kernel_rows(serves: dict, errs: dict) -> list[dict]:
             else "bytes",
             "library_ms": total["library_ms"],
             "host_paced": sorted(host_paced),
-        })
+        }
+        if key == "flash":
+            row["tflops"] = total["ops_ms"] * BF16_FLOPS_PER_S / total["ms"] / 1e12
+            row["ms_over_library"] = total["ms"] / total["library_ms"]
+        out.append(row)
     return out
 
 

@@ -188,3 +188,10 @@ class ServingEngine:
             if guard > 100000:  # pragma: no cover
                 raise RuntimeError("drain did not terminate")
         return self.completions
+
+    def run_until_drained(self) -> list[Completion]:
+        """Step until the queue is empty and no slot is active; the engine
+        stays open for more requests.  Returns every completion so far."""
+        while self.queue or (self.slot_rid >= 0).any():
+            self.step()
+        return self.completions

@@ -139,6 +139,56 @@ def test_flash_cpu_entry_point_repeats_kv_heads():
         assert torch.equal(got[:, h:h + 1], one)
 
 
+# -- what the wgmma variant's TMA unit takes ------------------------------------------
+
+ALIGNED = 1 << 20  # a base address on a 16-byte boundary
+
+
+@pytest.mark.parametrize("d", flash_kernel.HEAD_DIMS)
+@pytest.mark.parametrize("b,h,kv,s", [(1, 32, 4, 77), (1, 10, 1, 3000), (2, 8, 2, 1)])
+def test_tma_layout_rule_takes_the_models_views(b, h, kv, s, d):
+    """The model passes q, k and v as [B, S, heads, D] tensors transposed to
+    [B, heads, S, D] views (``models/attention.py``); the output is
+    ``empty_like`` of q.  All of them pass, and so do contiguous tensors."""
+    for heads in (h, kv):
+        base = torch.empty((b, s, heads, d), dtype=torch.bfloat16)
+        for t in (base.transpose(1, 2), torch.empty_like(base.transpose(1, 2)),
+                  base.transpose(1, 2).contiguous()):
+            assert flash_kernel.tma_layout_error(
+                t.shape, t.stride(), t.dtype, ALIGNED) is None, (t.shape, t.stride())
+
+
+@pytest.mark.parametrize("change,why", [
+    (lambda sh, st, dt, p: (sh, (st[0], st[1], st[2] + 1, 1), dt, p), "stride"),
+    (lambda sh, st, dt, p: (sh, (st[0], st[1] - 1, st[2], 1), dt, p), "stride"),
+    (lambda sh, st, dt, p: (sh, (st[0] + 1, st[1], st[2], 1), dt, p), "stride"),
+    (lambda sh, st, dt, p: (sh, st, dt, p + 2), "base address"),
+    (lambda sh, st, dt, p: (sh, st, torch.float32, p), "bfloat16"),
+    (lambda sh, st, dt, p: (sh, (st[0], st[1], st[2], 2), dt, p), "last dimension"),
+    (lambda sh, st, dt, p: ((*sh[:3], 48), st, dt, p), "head_dim"),
+    (lambda sh, st, dt, p: (sh[1:], st[1:], dt, p), "not [B, heads, S, D]"),
+], ids=["seq_stride_off_by_one", "head_stride_off_by_one", "batch_stride_off_by_one",
+        "base_off_by_one_element", "float32", "last_dim_strided", "head_dim_48", "3-D"])
+def test_tma_layout_rule_refuses(change, why):
+    t = torch.empty((2, 300, 10, 256), dtype=torch.bfloat16).transpose(1, 2)
+    args = change(tuple(t.shape), t.stride(), t.dtype, ALIGNED)
+    assert why in flash_kernel.tma_layout_error(*args)
+
+
+def test_tma_strides_ignore_dimensions_of_size_one():
+    """A dimension of size 1 is never stepped along: any stride passes the
+    rule there, and ``tma_strides`` hands the kernel the row length."""
+    t = torch.empty((1, 200, 1, 128), dtype=torch.bfloat16).transpose(1, 2)
+    odd = (7, 3, t.stride(2), 1)
+    assert flash_kernel.tma_layout_error(t.shape, odd, t.dtype, ALIGNED) is None
+    assert flash_kernel.tma_strides(t) == (128, 128, t.stride(2))
+
+
+def test_flash_variant_follows_the_dtype():
+    assert flash_kernel.VARIANTS == {torch.bfloat16: "wgmma", torch.float32: "f32"}
+    assert set(flash_kernel.LAUNCHES_BY_VARIANT) == {"wgmma", "f32"}
+
+
 # -- no fallback, and the build ---------------------------------------------------
 
 
@@ -150,11 +200,13 @@ def test_flash_cpu_entry_point_repeats_kv_heads():
     lambda t: rglru_kernel.rglru_scan_cuda(t[None], t[None], t[:1]),
 ], ids=["rmsnorm", "flash", "rglru", "rglru_h0"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
-    before = (rms_kernel.LAUNCHES, flash_kernel.LAUNCHES, rglru_kernel.LAUNCHES)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        call(torch.zeros(8, 32))
-    assert (rms_kernel.LAUNCHES, flash_kernel.LAUNCHES,
-            rglru_kernel.LAUNCHES) == before
+    before = (rms_kernel.LAUNCHES, flash_kernel.LAUNCHES, rglru_kernel.LAUNCHES,
+              dict(flash_kernel.LAUNCHES_BY_VARIANT))
+    for dtype in (torch.float32, torch.bfloat16):  # either flash variant
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call(torch.zeros(8, 32, dtype=dtype))
+    assert (rms_kernel.LAUNCHES, flash_kernel.LAUNCHES, rglru_kernel.LAUNCHES,
+            flash_kernel.LAUNCHES_BY_VARIANT) == before
 
 
 @pytest.mark.parametrize("call", [
@@ -168,8 +220,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
 def test_entry_points_send_non_cpu_tensors_to_the_kernel(call):
     """A tensor off the CPU never takes the plain version: it reaches the
     kernel's wrapper, which refuses anything but a CUDA tensor."""
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        call(torch.zeros(8, 32, device="meta"))
+    for dtype in (torch.float32, torch.bfloat16):  # either flash variant
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call(torch.zeros(8, 32, device="meta", dtype=dtype))
 
 
 def test_build_flags_are_per_source_and_hashed():

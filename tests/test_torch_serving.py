@@ -79,6 +79,26 @@ def test_engine_tokens_equal_the_jax_engine(name):
 
 
 @pytest.mark.parametrize("name", ["yi-9b", "recurrentgemma-2b"])
+def test_run_until_drained_equals_the_jax_engine(name):
+    """Both engines drain a first batch of requests, take a second batch
+    while still open, and drain again: the completions are equal token for
+    token, in order, after each drain."""
+    jcfg, cfg, jp, tp = _shared(name, seed=5)
+    reqs = _requests(cfg.vocab_size, n=8, seed=6)
+    jeng = JaxServingEngine(jcfg, jp, max_slots=3, max_seq=MAX_SEQ)
+    teng = ServingEngine(cfg, tp, max_slots=3, max_seq=MAX_SEQ)
+    for batch in (reqs[:5], reqs[5:]):
+        for rid, prompt, n_new in batch:
+            jeng.submit(JaxRequest(rid=rid, prompt=prompt, max_new_tokens=n_new))
+            teng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n_new))
+        jdone, tdone = jeng.run_until_drained(), teng.run_until_drained()
+        assert [(c.rid, c.prompt_len, c.tokens) for c in tdone] == \
+               [(c.rid, c.prompt_len, c.tokens) for c in jdone]
+        assert not teng.queue and not (teng.slot_rid >= 0).any()
+    assert sorted(c.rid for c in tdone) == list(range(8))
+
+
+@pytest.mark.parametrize("name", ["yi-9b", "recurrentgemma-2b"])
 def test_engine_equals_offline_greedy_decode(name):
     """Slots are spliced in place (K/V, and h/conv for rec) and decoded
     together; each completion equals its own batch-1 decode."""
