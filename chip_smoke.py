@@ -7,8 +7,13 @@ per source, all at once) and drives the port's paths on the card:
 
 1. The paper's Mandelbrot job (3,200 lines x 5,600 points, escape value
    1,000, 2 clusters x 4 cores) parsed from ``.cgpp``, verified, planned and
-   run on the threads backend, every line through the escape-time kernel,
-   which is first held against its plain version (exact equality).
+   run on the threads backend, every line in one launch of the escape-time
+   kernel's line entry.  First the grid entry is held against its plain
+   version (exact equality), at the check shapes and at max_iters around
+   the kernel's chunk of trips, and the line entry's sums against the grid
+   entry's row sums on every row, the paper's 3,200 lines among them; the
+   work function is profiled, after the serving phases, to show its two
+   device launches an item.
 2. LM serving, dense: the fused RMS-norm, flash-attention (both variants:
    wgmma for bfloat16, CUDA cores for float32) and RG-LRU scan kernels are
    held against their plain versions; then ``ServingEngine``
@@ -53,11 +58,13 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.core.builder import ClusterBuilder  # noqa: E402
 from repro_torch.core.verify import verify_spec  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
 from repro_torch.kernels.mandelbrot import kernel as mandel_kernel  # noqa: E402
+from repro_torch.kernels.mandelbrot.ops import mandelbrot_line_stats  # noqa: E402
 from repro_torch.kernels.mandelbrot.ref import (  # noqa: E402
     grid_coords,
     mandelbrot_reference,
@@ -89,9 +96,13 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 FP32_FLOPS_PER_S = 67e12
 # FP32 instructions per live iteration: two squares, the escape test's add
-# and compare, the two fmas, the add of x0 (csrc/mandelbrot.cu).
-INSTR_PER_ITER = 7
+# and compare, 2*zx, the two fmas, the add of x0 (csrc/mandelbrot.cu).
+INSTR_PER_ITER = 8
 BYTES_PER_POINT = 16  # two f32 coordinates in, two i32 results out
+# Cycles of one trip's dependent chain (zy^2 -> fma -> +x0, three FP32
+# operations of 4 cycles): a line takes at least its slowest point's count
+# times this, however many SMs it spreads over.
+TRIP_LATENCY_CYCLES = 12
 
 # Per-line timing: launches per chunk (well inside the stream's queue of
 # pending launches) and the spin that holds the stream while they enqueue.
@@ -101,6 +112,10 @@ CALL_CHUNK = 32  # calls per chunk when timing the serving kernels
 START = time.perf_counter()
 
 CHECK_SHAPES = [(9, 77, 30), (32, 300, 100), (64, 700, 1000), (1, WIDTH, 1000)]
+# Shapes checked again at max_iters 0, 1, K - 1, K, K + 1 and 1000, where K is
+# the kernel's chunk of trips between escape branches.
+K_EDGE_SHAPES = [(1, WIDTH), (64, 700)]
+PROFILED_ITEMS = 100  # work items under torch.profiler
 
 # RMS norm checks: [N, D], and the (x, scale) dtypes the model passes it.
 RMS_SHAPES = [(9, 77), (128, 4096), (1000, 4096), (4, 4096)]
@@ -168,6 +183,20 @@ def nvidia_smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def ptxas_report() -> list[str]:
+    """What ``ptxas -v`` says of the escape-time kernels' registers and
+    spills, built with the flags of the library the run loads."""
+    cubin = _build.BUILD_DIR / "mandelbrot-ptxas.cubin"
+    cubin.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run(
+        [_build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", *mandel_kernel.FLAGS, "-Xptxas", "-v", "-cubin",
+         "-o", str(cubin), str(mandel_kernel.SOURCE)],
+        check=True, capture_output=True, text=True)
+    return [line.split("ptxas info    : ")[-1] for line in proc.stderr.splitlines()
+            if "registers" in line or "spill" in line or "Compiling entry" in line]
+
+
 def event_ms(fn, reps: int) -> list[float]:
     """CUDA-event time of each of ``reps`` calls of ``fn``, in ms."""
     times = []
@@ -183,7 +212,9 @@ def event_ms(fn, reps: int) -> list[float]:
 
 
 def check_kernel(h: int, w: int, max_iters: int):
-    """Kernel against plain version on one grid: exact equality."""
+    """Grid entry against plain version on one grid, then the line entry on
+    every row against the grid's row sums (``check_line_entry``): exact
+    equality."""
     x0, y0 = grid_coords(h, w, device="cuda")
     it_k, col_k = mandel_kernel.mandelbrot_cuda(x0, y0, max_iters)
     torch.cuda.synchronize()
@@ -199,7 +230,89 @@ def check_kernel(h: int, w: int, max_iters: int):
           "equal": same, "max_abs_err": err})
     if not same:
         raise SystemExit(f"kernel differs from plain version at {h}x{w}x{max_iters}")
+    check_line_entry(it_k, col_k, max_iters)
     return x0, y0, it_k, col_k, err, start.elapsed_time(end)
+
+
+def check_line_entry(iters, colour, max_iters: int) -> None:
+    """The line entry, as the work function calls it, on every row of a
+    ``grid_coords`` grid: each row's (white, total_iters) must equal the
+    grid's row sums.  On the paper's image, its 3,200 lines."""
+    h, w = iters.shape
+    got = torch.stack([mandelbrot_line_stats(w, r, max_iters, device="cuda")
+                       for r in range(h)])
+    want = torch.stack((colour.sum(1, dtype=torch.int64),
+                        iters.sum(1, dtype=torch.int64)), 1)
+    off = (got != want).any(1).nonzero().flatten().tolist()
+    emit({"phase": "line_entry_vs_grid", "shape": [h, w], "max_iters": max_iters,
+          "lines": h, "lines_differing": len(off)})
+    if off:
+        raise SystemExit(f"line entry differs from the grid's row sums at "
+                         f"{h}x{w}x{max_iters}, lines {off[:10]}")
+
+
+def line_path_ms(launch_line, max_clock_hz: float) -> tuple[float, float, float]:
+    """Device time of the paper's 3,200 lines, one ``launch_line(r)`` call
+    each, in ms; with the host's enqueue time and its longest chunk.
+
+    Each chunk of calls is enqueued behind a spin kernel, so its events time
+    the device alone; the host clock times the enqueue.
+    """
+    device_ms = host_ms = chunk_host_max_ms = 0.0
+    for c in range(0, LINES, LINE_CHUNK):
+        torch.cuda._sleep(int(SPIN_S * max_clock_hz))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for r in range(c, min(c + LINE_CHUNK, LINES)):
+            launch_line(r)
+        chunk_ms = (time.perf_counter() - t0) * 1e3
+        host_ms += chunk_ms
+        chunk_host_max_ms = max(chunk_host_max_ms, chunk_ms)
+        end.record()
+        end.synchronize()
+        device_ms += start.elapsed_time(end)
+    return device_ms, host_ms, chunk_host_max_ms
+
+
+def profile_work_items(calculate) -> None:
+    """Device operations of ``PROFILED_ITEMS`` work items, by kind, from
+    torch.profiler: kernels and memsets are launches, copies go to the host.
+
+    The items run twice, a warm-up step and a recorded one: traced right
+    after another profile, the first items' device events went missing
+    (97 of 100 kernels, H100).
+    """
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for recorded in (False, True):
+            for r in range(PROFILED_ITEMS):
+                calculate(r)
+            torch.cuda.synchronize()
+            if not recorded:
+                prof.step()
+    by_kind = {"kernels": 0, "memsets": 0, "copies": 0}
+    names = {}
+    for evt in prof.key_averages():
+        if (getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA
+                or evt.key.startswith("ProfilerStep")):  # the step's own span
+            continue
+        kind = ("copies" if evt.key.startswith("Memcpy") else
+                "memsets" if evt.key.startswith("Memset") else "kernels")
+        by_kind[kind] += evt.count
+        names[evt.key[:80]] = evt.count
+    launches = by_kind["kernels"] + by_kind["memsets"]
+    line_kernel = sum(n for k, n in names.items() if "mandelbrot_line_kernel" in k)
+    emit({"phase": "work_item_profile", "items": PROFILED_ITEMS, **by_kind,
+          "device_launches_per_item": launches / PROFILED_ITEMS,
+          "line_kernel_launches": line_kernel, "names": names})
+    if launches != 2 * PROFILED_ITEMS or line_kernel != PROFILED_ITEMS:
+        raise SystemExit(f"work items launched {launches} device operations "
+                         f"({line_kernel} line kernels) over {PROFILED_ITEMS} "
+                         "items, expected two an item, one of them the line kernel")
 
 
 def run_job(spec, launches_expected: int):
@@ -239,16 +352,21 @@ def main() -> None:
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = {name: pool.submit(timed_load, module) for name, module in (
             ("mandelbrot", mandel_kernel), ("rmsnorm", rms_kernel),
             ("flash_attention", flash_kernel), ("rglru", rglru_kernel))}
+        ptxas = pool.submit(ptxas_report)
         seconds = {name: f.result() for name, f in builds.items()}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_kernel_s": seconds})
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "per_kernel_s": seconds, "mandelbrot_ptxas": ptxas.result()})
 
+    chunk = mandel_kernel.chunk()
+    k_edge = [(h, w, n) for h, w in K_EDGE_SHAPES
+              for n in (0, 1, chunk - 1, chunk, chunk + 1, MAX_ITERATIONS)]
+    emit({"phase": "mandelbrot_chunk", "trips_between_escape_branches": chunk})
     max_err = 0
-    for h, w, n in CHECK_SHAPES:
+    for h, w, n in CHECK_SHAPES + [c for c in k_edge if c not in CHECK_SHAPES]:
         max_err = max(max_err, check_kernel(h, w, n)[4])
     x0, y0, iters, colour, err, plain_ms = check_kernel(LINES, WIDTH, MAX_ITERATIONS)
     max_err = max(max_err, err)
@@ -260,25 +378,28 @@ def main() -> None:
     event_ms(one_grid, 2)  # warm-up
     kernel_ms = statistics.median(event_ms(one_grid, 7))
 
-    # The main path's shape: one [1, W] launch per line.  Each chunk of
-    # launches is enqueued behind a spin kernel, so its events time the
-    # device alone; the host clock times the enqueue.
-    rows = [(x0[r:r + 1], y0[r:r + 1]) for r in range(LINES)]
-    line_device_ms = line_host_ms = chunk_host_max_ms = 0.0
-    for c in range(0, LINES, LINE_CHUNK):
-        torch.cuda._sleep(int(SPIN_S * max_clock_hz))
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        for xr, yr in rows[c:c + LINE_CHUNK]:
-            mandel_kernel.mandelbrot_cuda(xr, yr, MAX_ITERATIONS)
-        chunk_ms = (time.perf_counter() - t0) * 1e3
-        line_host_ms += chunk_ms
-        chunk_host_max_ms = max(chunk_host_max_ms, chunk_ms)
-        end.record()
-        end.synchronize()
-        line_device_ms += start.elapsed_time(end)
+    # The main path's shape, one line a launch, timed in turns: the line
+    # entry as the work function calls it (zeroing its output included),
+    # then the grid entry on each [1, W] row of the image, twice each.
+    cuda = torch.device("cuda")
+
+    def line_entry(r):
+        mandelbrot_line_stats(WIDTH, r, MAX_ITERATIONS, device=cuda)
+
+    def grid_entry(r):
+        mandel_kernel.mandelbrot_cuda(x0[r:r + 1], y0[r:r + 1], MAX_ITERATIONS)
+
+    line_entry(0)  # warm-up
+    grid_entry(0)
+    per_line = {"line_entry": [], "grid_entry": []}
+    for name in ("line_entry", "grid_entry", "grid_entry", "line_entry"):
+        per_line[name].append(line_path_ms(
+            line_entry if name == "line_entry" else grid_entry, max_clock_hz))
+    line_device_ms, line_host_ms, chunk_host_max_ms = per_line["grid_entry"][0]
+    entry_device_ms = per_line["line_entry"][0][0]
+    # A line waits on its slowest point's chain of trips.
+    floor_ms = (int(iters.max(1).values.sum(dtype=torch.int64))
+                * TRIP_LATENCY_CYCLES / max_clock_hz * 1e3)
 
     total_iters = int(iters.sum(dtype=torch.int64))
     white = int(colour.sum())
@@ -294,7 +415,12 @@ def main() -> None:
           "per_line_host_enqueue_ms": line_host_ms,
           # below the spin, the chunk waited in the queue: device time only
           "per_line_chunk_enqueue_max_ms": chunk_host_max_ms,
-          "per_line_spin_ms": SPIN_S * 1e3, "plain_ms": plain_ms,
+          "per_line_spin_ms": SPIN_S * 1e3,
+          "line_entry_device_ms": entry_device_ms,
+          # [device ms, host enqueue ms, longest chunk's enqueue ms] per
+          # reading, in the order line, grid, grid, line
+          "per_line_readings": per_line,
+          "line_latency_floor_ms": floor_ms, "plain_ms": plain_ms,
           "total_iters": total_iters, "mean_iters": total_iters / points,
           "white_fraction": white / points, "bound_ms": bound_ms,
           "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
@@ -337,9 +463,10 @@ def main() -> None:
           "launches": f_launches, "wall_s": f_wall_s})
 
     # A kernel is judged at the shapes its main path gives it: "ms" is the
-    # device time of the job's 3,200 [1, W] launches, against the bound of
-    # the same work.  The one full-grid launch is in the full_grid phase;
-    # "plain_ms" is the plain version over the same grid in one call.
+    # device time of the job's 3,200 line-entry launches, against the bound
+    # of the same work.  The one full-grid launch and the latency floor of
+    # one line at a time are in the full_grid phase; "plain_ms" is the plain
+    # version over the same grid in one call.
     mandel_row = {
         "name": "mandelbrot_escape_time",
         "route": "cuda",
@@ -347,7 +474,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/mandelbrot/kernel.py:31",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": line_device_ms,
+        "ms": entry_device_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -370,6 +497,9 @@ def main() -> None:
                             lambda rng, vocab: requests_of_lengths(
                                 rng, RG_SERVE_PROMPTS, SERVE_NEW, vocab),
                             profile=True)
+    # After the timed phases: run before the serve phases, this profile left
+    # their decode ticks 14-47 % slower on the host (H100, one call).
+    profile_work_items(calculate)
     # serve_full checked each phase's flash launches: all wgmma, none f32.
     emit({"phase": "flash_variants", "serve_flash_launches": {
         variant: sum(serve["flash_variants"][variant] for serve in serves.values())

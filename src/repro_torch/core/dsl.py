@@ -86,6 +86,10 @@ class ClusterSpec:
     def workers_per_node(self) -> int:
         return self.node_net.group.workers
 
+    @property
+    def total_workers(self) -> int:
+        return self.nclusters * self.workers_per_node
+
     def validate(self) -> None:
         """Static validation of the canonical emit->cluster->collect topology.
 
@@ -216,6 +220,20 @@ class PipelineSpec:
     stages: list[StageNetwork]
     collector: Collect
     constants: dict[str, Any] = field(default_factory=dict)
+
+    # -- shape ---------------------------------------------------------------
+
+    @property
+    def nstages(self) -> int:
+        return len(self.stages)
+
+    @property
+    def total_nodes(self) -> int:
+        return sum(st.nclusters for st in self.stages)
+
+    @property
+    def total_workers(self) -> int:
+        return sum(st.nclusters * st.workers_per_node for st in self.stages)
 
     def node_assignments(self) -> list[tuple[str, int]]:
         """Flat ``(node_id, stage_index)`` assignment, stage order.

@@ -1,6 +1,6 @@
-"""Public Mandelbrot entry point: the tensor's device picks the path.
+"""Public Mandelbrot entry points: the device picks the path.
 
-A CPU tensor takes the plain PyTorch version; a CUDA tensor takes the CUDA
+A CPU device takes the plain PyTorch version; a CUDA device takes the CUDA
 kernel, or raises.  Nothing falls back from one to the other.  The kernel
 masks the grid's ragged edge itself, so no padding is needed.
 """
@@ -9,8 +9,16 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.mandelbrot.kernel import mandelbrot_cuda
-from repro_torch.kernels.mandelbrot.ref import mandelbrot_reference
+from repro_torch.device import resolve_device
+from repro_torch.kernels.mandelbrot.kernel import (
+    mandelbrot_cuda,
+    mandelbrot_line_cuda,
+)
+from repro_torch.kernels.mandelbrot.ref import (
+    line_params,
+    line_stats_reference,
+    mandelbrot_reference,
+)
 
 
 def mandelbrot(x0: torch.Tensor, y0: torch.Tensor, *, max_iters: int = 1000):
@@ -18,3 +26,19 @@ def mandelbrot(x0: torch.Tensor, y0: torch.Tensor, *, max_iters: int = 1000):
     if x0.device.type == "cpu" and y0.device.type == "cpu":
         return mandelbrot_reference(x0, y0, max_iters)
     return mandelbrot_cuda(x0, y0, max_iters)
+
+
+def mandelbrot_line_stats(width: int, line_y: int, max_iters: int, *,
+                          device=None) -> torch.Tensor:
+    """One work item of the paper's job: line ``line_y`` of ``width`` points
+    (``line_coords``) counted to ``max_iters`` -> int64 [2] on ``device``:
+    (points that escaped, the sum of their iteration counts).
+
+    On a CUDA device (the default) this is one launch of the line kernel
+    beside the zeroing of its output; on the CPU, the plain version.
+    """
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return line_stats_reference(width, line_y, max_iters)
+    y, min_x, delta = line_params(width, line_y)
+    return mandelbrot_line_cuda(width, y, min_x, delta, max_iters, dev)

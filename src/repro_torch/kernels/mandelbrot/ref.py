@@ -65,8 +65,30 @@ def mandelbrot_reference(x0: torch.Tensor, y0: torch.Tensor, max_iters: int):
     return iters, colour
 
 
-def line_coords(width: int, line_y: int, *, min_x=-2.5, min_y=1.0,
-                range_x=3.5, device=None):
+# The paper's view of the plane: x from -2.5 over 3.5, y down from 1.0.
+MIN_X, MIN_Y, RANGE_X = -2.5, 1.0, 3.5
+
+
+def line_stats_reference(width: int, line_y: int, max_iters: int):
+    """One line of the paper's job on the CPU -> int64 [2]: (points that
+    escaped, the sum of their iteration counts), as the JAX quickstart's
+    work function sums them."""
+    x0, y0 = line_coords(width, line_y, device="cpu")
+    iters, colour = mandelbrot_reference(x0[None], y0[None], max_iters)
+    return torch.stack((colour.sum(), iters.sum()))
+
+
+def line_params(width: int, line_y: int, *, min_x=MIN_X, min_y=MIN_Y,
+                range_x=RANGE_X):
+    """The paper's geometry of line ``line_y`` {4:26-39}, in Python floats:
+    (its y, the x of its first point, the step between points).  Point ``i``
+    is at ``min_x + i * delta``."""
+    delta = range_x / width
+    return min_y - line_y * delta, min_x, delta
+
+
+def line_coords(width: int, line_y: int, *, min_x=MIN_X, min_y=MIN_Y,
+                range_x=RANGE_X, device=None):
     """The paper's ``createInstance`` coordinate layout {4:26-39}.
 
     The same float32 operations as the JAX package, so the coordinates are
@@ -76,21 +98,20 @@ def line_coords(width: int, line_y: int, *, min_x=-2.5, min_y=1.0,
     """
     dev = resolve_device(device)
     f32 = torch.float32
-    delta = range_x / width
+    y, min_x, delta = line_params(width, line_y, min_x=min_x, min_y=min_y,
+                                  range_x=range_x)
     x = (torch.tensor(min_x, dtype=f32)
          + torch.arange(width, dtype=f32, device=dev)
          * torch.tensor(delta, dtype=f32))
-    y = torch.full((width,), min_y - line_y * delta, dtype=f32, device=dev)
-    return x, y
+    return x, torch.full((width,), y, dtype=f32, device=dev)
 
 
-def grid_coords(height: int, width: int, *, min_x=-2.5, min_y=1.0,
-                range_x=3.5, device=None):
+def grid_coords(height: int, width: int, *, min_x=MIN_X, min_y=MIN_Y,
+                range_x=RANGE_X, device=None):
     """[height, width] grids whose row ``r`` is ``line_coords(width, r)``."""
-    x, _ = line_coords(width, 0, min_x=min_x, min_y=min_y, range_x=range_x,
-                       device=device)
-    delta = range_x / width
-    y = torch.tensor([min_y - r * delta for r in range(height)],
+    geometry = dict(min_x=min_x, min_y=min_y, range_x=range_x)
+    x, _ = line_coords(width, 0, device=device, **geometry)
+    y = torch.tensor([line_params(width, r, **geometry)[0] for r in range(height)],
                      dtype=torch.float32, device=x.device)
     return (x.expand(height, width).contiguous(),
             y[:, None].expand(height, width).contiguous())

@@ -4,8 +4,8 @@ Part 1 builds the Mandelbrot application from a textual ``.cgpp``
 specification (Listing 2 of the paper), verifies the deployment formally
 (section 7), prints the generated deployment plan (section 4 / figure 1),
 runs it on the threads backend and reports the paper's counts + per-node
-timing (requirement 7).  Every work item renders one line with the CUDA
-escape-time kernel.
+timing (requirement 7).  Every work item renders and sums one line in one
+launch of the CUDA escape-time kernel.
 
 Part 2 builds the same workload as a *two-stage pipeline* with the fluent
 Python API — Mandelbrot lines rendered by stage 1, reduced per line by
@@ -31,8 +31,7 @@ from repro_torch.core.dsl import ClusterSpec, Pipeline, PipelineSpec, parse_cgpp
 from repro_torch.core.processes import EmitDetails, ResultDetails
 from repro_torch.core.verify import verify_spec
 from repro_torch.device import resolve_device
-from repro_torch.kernels.mandelbrot.ops import mandelbrot
-from repro_torch.kernels.mandelbrot.ref import line_coords
+from repro_torch.kernels.mandelbrot.ops import mandelbrot_line_stats
 
 WIDTH = 5600
 LINES = 3200
@@ -76,9 +75,8 @@ def make_calculate(width: int, max_iters: int, device: torch.device):
     """The user's sequential data method (paper Mdata.calculateColour)."""
 
     def calculate(line_y: int):
-        x0, y0 = line_coords(width, line_y, device=device)
-        iters, colour = mandelbrot(x0[None], y0[None], max_iters=max_iters)
-        white, total_iters = torch.stack((colour.sum(), iters.sum())).tolist()
+        white, total_iters = mandelbrot_line_stats(
+            width, line_y, max_iters, device=device).tolist()
         return {"points": width, "white": white, "total_iters": total_iters}
 
     return calculate

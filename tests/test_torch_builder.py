@@ -207,7 +207,8 @@ def test_threads_job_counts_equal_jax(jax_qs):
     assert items == LINES
 
 
-def test_fluent_two_stage_pipeline_equals_jax(jax_qs):
+def _jax_fluent_spec(jax_qs):
+    """The JAX package's counterpart of ``port_qs.fluent_spec``."""
     emit = jax_proc.EmitDetails(
         name="Mdata", init=lambda n: (0, n), init_data=(LINES,),
         create=lambda s: (None, s) if s[0] >= s[1] else (s[0], (s[0] + 1, s[1])))
@@ -218,14 +219,18 @@ def test_fluent_two_stage_pipeline_equals_jax(jax_qs):
                 "black": acc["black"] + points - white,
                 "total_iters": acc["total_iters"] + iters}
 
-    spec_j = (jax_dsl.Pipeline(host="192.168.1.176").emit(emit)
-              .stage(jax_qs.calculate, nodes=2, workers=2, name="render")
-              .stage(jax_qs.reduce_line, nodes=1, workers=1, name="reduce")
-              .collect(jax_proc.ResultDetails(
-                  name="Mcollect",
-                  init=lambda: dict(points=0, white=0, black=0, total_iters=0),
-                  collect=fold))
-              .build())
+    return (jax_dsl.Pipeline(host="192.168.1.176").emit(emit)
+            .stage(jax_qs.calculate, nodes=2, workers=2, name="render")
+            .stage(jax_qs.reduce_line, nodes=1, workers=1, name="reduce")
+            .collect(jax_proc.ResultDetails(
+                name="Mcollect",
+                init=lambda: dict(points=0, white=0, black=0, total_iters=0),
+                collect=fold))
+            .build())
+
+
+def test_fluent_two_stage_pipeline_equals_jax(jax_qs):
+    spec_j = _jax_fluent_spec(jax_qs)
     spec_t = port_qs.fluent_spec(WIDTH, LINES, ITERS, device="cpu")
     assert [(s.name, s.nclusters, s.workers_per_node) for s in spec_t.stages] == [
         (s.name, s.nclusters, s.workers_per_node) for s in spec_j.stages]
@@ -236,6 +241,22 @@ def test_fluent_two_stage_pipeline_equals_jax(jax_qs):
     assert rt == rj
     # the two-stage job sees exactly the cgpp job's lines
     assert rt == port_builder.ClusterBuilder().build_application(_port_spec()).run()
+
+
+@pytest.mark.parametrize("specs", [
+    lambda jq: (_jax_spec(jq), _port_spec()),
+    lambda jq: (_jax_fluent_spec(jq),
+                port_qs.fluent_spec(WIDTH, LINES, ITERS, device="cpu")),
+    lambda jq: tuple(pkg.dsl.parse_cgpp(_staged_text(12)) for pkg in (JAX, PORT)),
+], ids=["paper-cgpp", "fluent-two-stage", "staged-cgpp"])
+def test_spec_shape_properties_equal_jax(jax_qs, specs):
+    sj, st = specs(jax_qs)
+    assert type(st).__name__ == type(sj).__name__
+    if isinstance(st, port_dsl.ClusterSpec):
+        assert st.total_workers == sj.total_workers
+        sj, st = sj.as_pipeline(), st.as_pipeline()
+    shape = ("nstages", "total_nodes", "total_workers")
+    assert [getattr(st, k) for k in shape] == [getattr(sj, k) for k in shape]
 
 
 def test_quickstart_main_on_cpu(capsys):

@@ -7,6 +7,7 @@ CPU contracts two) are reproduced with a correctly rounded ``fma_f32``.
 The CUDA kernel itself runs only on the card (``chip_smoke.py``).
 """
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -110,12 +111,72 @@ def test_line_coords_bit_exact(width, line_y):
     np.testing.assert_array_equal(y_t.numpy().view(np.int32), y_j.view(np.int32))
 
 
+@pytest.mark.parametrize("width,line_y", [(5600, 0), (5600, 3199), (300, 86), (77, 5)])
+def test_line_params_give_the_line_kernels_coordinates(width, line_y):
+    """The line kernel gets ``line_params`` rounded to float32 and builds
+    point i as the float32 sum of min_x and the float32 product i * delta;
+    in numpy float32 that is the JAX package's ``line_coords`` bit for bit."""
+    y, min_x, delta = (np.float32(v) for v in port_ref.line_params(width, line_y))
+    x = min_x + np.arange(width, dtype=np.float32) * delta
+    x_j, y_j = (np.asarray(a) for a in jax_ref.line_coords(width, line_y))
+    np.testing.assert_array_equal(x.view(np.int32), x_j.view(np.int32))
+    np.testing.assert_array_equal(np.full(width, y).view(np.int32), y_j.view(np.int32))
+
+
 def test_paper_white_fraction():
     """Paper section 8: ~14.06M of 17.92M points are white; a 1/8-scale
     grid at 200 iterations gives a comparable fraction."""
     x, y = port_ref.grid_coords(400, 700, device="cpu")
     _iters, col = port_ops.mandelbrot(x, y, max_iters=200)
     assert 0.70 < float(col.float().mean()) < 0.90
+
+
+# -- one work item: a line's sums ---------------------------------------------
+
+
+def _lines(width):
+    """Line 0, the image's last line and the line through the real axis, where
+    the set's interior runs to max_iters (the image is 4/7 as high as wide)."""
+    return [0, 4 * width // 7 - 1, round(width / 3.5)]
+
+
+@pytest.mark.parametrize("iters", [30, 100])
+@pytest.mark.parametrize("width", [300, 5600])
+def test_line_stats_equal_jax_work_function(width, iters):
+    """The port's work item against the JAX quickstart's: ``line_coords``,
+    the Pallas kernel in interpret mode, then the two sums."""
+    for line_y in _lines(width):
+        x, y = jax_ref.line_coords(width, line_y)
+        it_j, col_j = jax_ops.mandelbrot(x[None], y[None], max_iters=iters)
+        want = [int(jnp.sum(col_j)), int(jnp.sum(it_j))]
+        got = port_ops.mandelbrot_line_stats(width, line_y, iters, device="cpu")
+        assert got.dtype == torch.int64 and got.shape == (2,)
+        assert got.tolist() == want, line_y
+    assert 0 < want[0] < width  # the axis line has interior points
+
+
+@pytest.fixture(scope="module")
+def jax_quickstart():
+    """The JAX package's quickstart at a small instance (300 x 32 x 100)."""
+    knobs = {"QUICKSTART_WIDTH": "300", "QUICKSTART_LINES": "32",
+             "QUICKSTART_ITERS": "100"}
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in knobs.items():
+            mp.setenv(k, v)
+        spec = importlib.util.spec_from_file_location(
+            "jax_quickstart_mandelbrot", ROOT / "examples" / "quickstart.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    return mod
+
+
+def test_work_function_equals_jax_calculate_on_every_line(jax_quickstart):
+    from repro_torch.quickstart import make_calculate
+
+    calculate = make_calculate(300, 100, torch.device("cpu"))
+    for line_y in range(32):
+        got, want = calculate(line_y), jax_quickstart.calculate(line_y)
+        assert got == want and type(got["white"]) is type(got["total_iters"]) is int
 
 
 # -- fma ---------------------------------------------------------------------
@@ -170,6 +231,7 @@ def no_cuda(monkeypatch):
     lambda: port_ref.line_coords(16, 0),
     lambda: port_ref.grid_coords(4, 16),
     lambda: port_ref.line_coords(16, 0, device="cuda"),
+    lambda: port_ops.mandelbrot_line_stats(16, 0, 10),
 ])
 def test_default_device_is_cuda_and_raises_without_it(no_cuda, call):
     with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -189,6 +251,36 @@ def test_cuda_tensors_go_to_the_kernel_not_the_plain_version(monkeypatch):
     x = torch.empty(2, 3, device="meta")
     port_ops.mandelbrot(x, x, max_iters=7)
     assert seen == [("meta", 7)]
+
+
+def test_cuda_device_goes_to_the_line_kernel_not_the_plain_version(monkeypatch):
+    def plain_must_not_run(*_a, **_k):
+        raise AssertionError("plain line version reached with a CUDA device")
+
+    seen = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(port_ops, "line_stats_reference", plain_must_not_run)
+    monkeypatch.setattr(port_ops, "mandelbrot_line_cuda",
+                        lambda *args: seen.append(args))
+    port_ops.mandelbrot_line_stats(300, 5, 30, device="cuda")
+    port_ops.mandelbrot_line_stats(300, 7, 40)
+    cuda = torch.device("cuda")
+    assert seen == [(300, *port_ref.line_params(300, 5), 30, cuda),
+                    (300, *port_ref.line_params(300, 7), 40, cuda)]
+    delta = 3.5 / 300  # the paper's view: x from -2.5 over 3.5, y down from 1
+    assert port_ref.line_params(300, 7) == (1.0 - 7 * delta, -2.5, delta)
+
+
+@pytest.mark.parametrize("width,max_iters,device", [
+    (0, 10, "cuda"), (-3, 10, "cuda"), (2**31, 10, "cuda"),
+    (16, -1, "cuda"), (16, 2**31, "cuda"),
+    (16, 10, "cpu"), (16, 10, "meta"),
+])
+def test_line_wrapper_rejects_what_it_cannot_launch(width, max_iters, device):
+    launches = port_kernel.LAUNCHES
+    with pytest.raises(ValueError):
+        port_kernel.mandelbrot_line_cuda(width, 0.5, -2.5, 0.01, max_iters, device)
+    assert port_kernel.LAUNCHES == launches
 
 
 @pytest.mark.parametrize("x0,y0", [
