@@ -16,7 +16,10 @@ per source, all at once) and drives the port's paths on the card:
    device launches an item.
 2. LM serving, dense: the fused RMS-norm, flash-attention (both variants:
    wgmma for bfloat16, CUDA cores for float32) and RG-LRU scan kernels are
-   held against their plain versions; then ``ServingEngine``
+   held against their plain versions (RMS norm also bit-equal on the same
+   rows in launches of 1, 4 and 1,000 rows; the chunked RG-LRU scan within
+   tolerance of the sequential scan and bit-equal to ``rglru_scan_chunked``,
+   S around its chunk length among the cases); then ``ServingEngine``
    serves yi-9b at full width, first cut to 4 layers in float32 (every
    completion must equal offline greedy decode), then at full depth (48
    layers, bf16 weights from ``init_params`` on the card), where the
@@ -30,7 +33,9 @@ per source, all at once) and drives the port's paths on the card:
 Each phase prints one JSON line; any failure exits non-zero.  The line
 before the last lists every kernel with its launches on its path, its
 device time at that path's shapes, its bound, its plain version's time and
-a library call's; the last line is the run's verdict.
+a library call's (RMS norm and RG-LRU also split into their prefill and
+decode-tick launches, beside the time of as many launches at the least
+shape); the last line is the run's verdict.
 
 Without a CUDA device, or without the repository around it, it exits
 non-zero and prints no result.
@@ -70,7 +75,10 @@ from repro_torch.kernels.mandelbrot.ref import (  # noqa: E402
     mandelbrot_reference,
 )
 from repro_torch.kernels.rglru import kernel as rglru_kernel  # noqa: E402
-from repro_torch.kernels.rglru.ref import rglru_scan_reference  # noqa: E402
+from repro_torch.kernels.rglru.ref import (  # noqa: E402
+    rglru_scan_chunked,
+    rglru_scan_reference,
+)
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rms_norm_reference  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -117,8 +125,14 @@ CHECK_SHAPES = [(9, 77, 30), (32, 300, 100), (64, 700, 1000), (1, WIDTH, 1000)]
 K_EDGE_SHAPES = [(1, WIDTH), (64, 700)]
 PROFILED_ITEMS = 100  # work items under torch.profiler
 
-# RMS norm checks: [N, D], and the (x, scale) dtypes the model passes it.
-RMS_SHAPES = [(9, 77), (128, 4096), (1000, 4096), (4, 4096)]
+# RMS norm checks: [N, D], and the (x, scale) dtypes the model passes it;
+# yi-9b's D = 4096 and recurrentgemma-2b's D = 2560 at a tick's 4 rows, a
+# prompt's and one row.
+RMS_SHAPES = [(9, 77), (128, 4096), (1000, 4096), (4, 4096), (1, 4096),
+              (4, 2560), (3000, 2560)]
+# Row invariance: the first rows of a [1000, D] launch, normalised again in
+# launches of 1 and 4 rows, must come out the same bits, at both served D.
+RMS_INVARIANCE_ROWS, RMS_SERVED_D = (1, 4, 1000), (4096, 2560)
 RMS_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
               (torch.bfloat16, torch.bfloat16)]
 RMS_TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}
@@ -149,6 +163,9 @@ FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
 # h0; then the model's shapes, a prefill and a decode tick.
 RGLRU_SWEEP = [(2, 64, 128), (1, 128, 200), (3, 32, 64)]
 RGLRU_MODEL = [(1, 3000, 2560, False), (4, 1, 2560, True)]
+# S around the chunk length L (0, 1, L - 1, L, L + 1, 3L + 5) at a ragged W,
+# and the model's S at its W; B = 1 and 3, with and without h0.
+RGLRU_EDGE_W, RGLRU_EDGE_MODEL = 200, (3000, 2560)
 RGLRU_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 
 # Serving.  The checks cut depth and run in float32 with TF32 off (greedy
@@ -183,15 +200,15 @@ def nvidia_smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def ptxas_report() -> list[str]:
-    """What ``ptxas -v`` says of the escape-time kernels' registers and
-    spills, built with the flags of the library the run loads."""
-    cubin = _build.BUILD_DIR / "mandelbrot-ptxas.cubin"
+def ptxas_report(source: Path, flags: tuple[str, ...] = ()) -> list[str]:
+    """What ``ptxas -v`` says of the kernels of ``source``: registers, shared
+    memory and spills, built with the flags of the library the run loads."""
+    cubin = _build.BUILD_DIR / f"{source.stem}-ptxas.cubin"
     cubin.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run(
         [_build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
-         "-std=c++17", "-O3", *mandel_kernel.FLAGS, "-Xptxas", "-v", "-cubin",
-         "-o", str(cubin), str(mandel_kernel.SOURCE)],
+         "-std=c++17", "-O3", *flags, "-Xptxas", "-v", "-cubin",
+         "-o", str(cubin), str(source)],
         check=True, capture_output=True, text=True)
     return [line.split("ptxas info    : ")[-1] for line in proc.stderr.splitlines()
             if "registers" in line or "spill" in line or "Compiling entry" in line]
@@ -352,14 +369,18 @@ def main() -> None:
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(7) as pool:
         builds = {name: pool.submit(timed_load, module) for name, module in (
             ("mandelbrot", mandel_kernel), ("rmsnorm", rms_kernel),
             ("flash_attention", flash_kernel), ("rglru", rglru_kernel))}
-        ptxas = pool.submit(ptxas_report)
+        ptxas = {f"{name}_ptxas": pool.submit(ptxas_report, module.SOURCE, flags)
+                 for name, module, flags in (
+                     ("mandelbrot", mandel_kernel, mandel_kernel.FLAGS),
+                     ("rmsnorm", rms_kernel, ()), ("rglru", rglru_kernel, ()))}
         seconds = {name: f.result() for name, f in builds.items()}
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
-              "per_kernel_s": seconds, "mandelbrot_ptxas": ptxas.result()})
+              "per_kernel_s": seconds,
+              **{key: f.result() for key, f in ptxas.items()}})
 
     chunk = mandel_kernel.chunk()
     k_edge = [(h, w, n) for h, w in K_EDGE_SHAPES
@@ -564,7 +585,44 @@ def check_rmsnorm() -> float:
             if not ok:
                 raise SystemExit(f"rmsnorm kernel differs at {n}x{d} {xdt}/{sdt}")
             worst = max(worst, err)
+    check_rmsnorm_row_invariance(gen)
+    count_rsqrt_rounding(gen)
     return worst
+
+
+def check_rmsnorm_row_invariance(gen) -> None:
+    """The same rows give the same bits in launches of 1, 4 and 1,000 rows,
+    at both served widths: a batch-4 tick must normalise a request's row as
+    its batch-1 prefill and offline decode do."""
+    for d in RMS_SERVED_D:
+        for xdt, sdt in RMS_DTYPES:
+            x = torch.randn((max(RMS_INVARIANCE_ROWS), d), generator=gen,
+                            device="cuda").to(xdt)
+            scale = (0.2 * torch.randn((d,), generator=gen, device="cuda")).to(sdt)
+            outs = [rms_kernel.rms_norm_cuda(x[:n].contiguous(), scale)
+                    for n in RMS_INVARIANCE_ROWS]
+            same = {f"{few}_in_{many}": torch.equal(outs[j][:few], outs[i])
+                    for i, few in enumerate(RMS_INVARIANCE_ROWS)
+                    for j, many in enumerate(RMS_INVARIANCE_ROWS) if many > few}
+            ok = all(same.values())
+            emit({"phase": "rmsnorm_row_invariance", "d": d, "x_dtype": str(xdt),
+                  "scale_dtype": str(sdt), "rows": list(RMS_INVARIANCE_ROWS),
+                  "plan": rms_kernel.launch_plan(d, xdt)._asdict(),
+                  "bit_equal": same, "ok": ok})
+            if not ok:
+                raise SystemExit(f"rmsnorm rows change with the launch's row count "
+                                 f"at D = {d} {xdt}/{sdt}: {same}")
+
+
+def count_rsqrt_rounding(gen) -> None:
+    """How often the plain version's torch.rsqrt differs on the card from a
+    correctly rounded 1 / sqrt, and by how many ulp: why the kernel takes
+    rsqrtf (see the note at the head of rmsnorm.cu)."""
+    v = 0.01 + 4 * torch.rand(1 << 22, generator=gen, device="cuda")
+    plain, exact = torch.rsqrt(v), 1.0 / torch.sqrt(v)
+    ulps = (plain.view(torch.int32) - exact.view(torch.int32)).abs()
+    emit({"phase": "rmsnorm_rsqrt", "values": v.numel(),
+          "differing": int((ulps > 0).sum()), "max_ulp": int(ulps.max())})
 
 
 def flash_inputs(b, h, kv, sq, skv, d, dtype, gen, model_layout: bool):
@@ -631,50 +689,81 @@ def model_gates(b: int, s: int, w: int, gen, seed: int = 0):
 
 
 def check_rglru() -> float:
-    """RG-LRU kernel against its plain version on the card: the reference
-    sweep with h0, state chaining, then the model's shapes."""
+    """RG-LRU kernel against its plain versions on the card: within
+    ``RGLRU_TOL`` of the sequential scan and bit-equal to the chunked one at
+    the plan's chunk length, on the reference sweep with h0, state chaining,
+    S around the chunk length and the model's shapes; the decode tick's
+    shape (one chunk) bit-equal to the sequential scan."""
     gen = torch.Generator("cuda").manual_seed(4)
     worst = 0.0
 
-    def compare(label, got, want, dtype, extra):
+    def compare(label, got, want, chunked, dtype, extra, sequential=False):
         nonlocal worst
         torch.cuda.synchronize()
-        errs = [float((g.float() - w.float()).abs().max())
+        errs = [float((g.float() - w.float()).abs().max()) if g.numel() else 0.0
                 for g, w in zip(got, want)]
+        bit_chunked = all(torch.equal(g, c) for g, c in zip(got, chunked))
+        bit_sequential = all(torch.equal(g, w) for g, w in zip(got, want))
         ok = (got[0].dtype == dtype and got[1].dtype == torch.float32
               and all(bool(torch.isfinite(g).all()) for g in got)
-              and max(errs) <= RGLRU_TOL[dtype])
+              and max(errs) <= RGLRU_TOL[dtype] and bit_chunked
+              and (bit_sequential or not sequential))
         emit({"phase": "rglru_kernel_vs_plain", "case": label, **extra,
               "dtype": str(dtype), "max_abs_err_h": errs[0],
-              "max_abs_err_h_last": errs[1], "tol": RGLRU_TOL[dtype], "ok": ok})
+              "max_abs_err_h_last": errs[1], "tol": RGLRU_TOL[dtype],
+              "bit_equal_chunked": bit_chunked,
+              "bit_equal_sequential": bit_sequential, "ok": ok})
         if not ok:
             raise SystemExit(f"rglru kernel differs: {label} {extra} {dtype}")
         worst = max(worst, *errs)
 
+    def check(label, a, x, h0, dtype, extra, sequential=False):
+        plan = rglru_kernel.chunk_plan(a.shape[1], a.shape[2])
+        compare(label, rglru_kernel.rglru_scan_cuda(a, x, h0),
+                rglru_scan_reference(a, x, h0),
+                rglru_scan_chunked(a, x, h0, plan.length), dtype,
+                {**extra, "chunk_len": plan.length, "chunks": plan.chunks},
+                sequential)
+
+    def inputs(b, s, w, dtype):
+        a = (0.5 + 0.499 * torch.rand((b, s, w), generator=gen,
+                                      device="cuda")).to(dtype)
+        x = torch.randn((b, s, w), generator=gen, device="cuda").to(dtype)
+        return a, x, torch.randn((b, w), generator=gen, device="cuda").to(dtype)
+
+    L = rglru_kernel.TILE  # the chunk length of every S up to 1,024
+    edges = [(s, RGLRU_EDGE_W) for s in (0, 1, L - 1, L, L + 1, 3 * L + 5)]
+    edges.append(RGLRU_EDGE_MODEL)
     for dtype in (torch.float32, torch.bfloat16):
         for b, s, w in RGLRU_SWEEP:
-            a = (0.5 + 0.499 * torch.rand((b, s, w), generator=gen,
-                                          device="cuda")).to(dtype)
-            x = torch.randn((b, s, w), generator=gen, device="cuda").to(dtype)
-            h0 = torch.randn((b, w), generator=gen, device="cuda").to(dtype)
-            compare("sweep", rglru_kernel.rglru_scan_cuda(a, x, h0),
-                    rglru_scan_reference(a, x, h0), dtype, {"shape": [b, s, w]})
+            a, x, h0 = inputs(b, s, w, dtype)
+            check("sweep", a, x, h0, dtype, {"shape": [b, s, w]})
+        for s, w in edges:
+            for b in (1, 3):
+                a, x, h0 = inputs(b, s, w, dtype)
+                for with_h0 in (False, True):
+                    check("chunk_edge", a, x, h0 if with_h0 else None, dtype,
+                          {"shape": [b, s, w], "h0": with_h0})
         # Two halves with the carried state equal the whole.
         a = (0.5 + 0.49 * torch.rand((1, 64, 128), generator=gen,
                                      device="cuda")).to(dtype)
         x = torch.randn((1, 64, 128), generator=gen, device="cuda").to(dtype)
-        h1, last1 = rglru_kernel.rglru_scan_cuda(a[:, :32].contiguous(),
-                                                 x[:, :32].contiguous())
-        h2, last2 = rglru_kernel.rglru_scan_cuda(a[:, 32:].contiguous(),
-                                                 x[:, 32:].contiguous(), last1)
+        halves = (a[:, :32].contiguous(), x[:, :32].contiguous()), \
+            (a[:, 32:].contiguous(), x[:, 32:].contiguous())
+        h1, last1 = rglru_kernel.rglru_scan_cuda(*halves[0])
+        h2, last2 = rglru_kernel.rglru_scan_cuda(*halves[1], last1)
+        length = rglru_kernel.chunk_plan(32, 128).length
+        c1, clast1 = rglru_scan_chunked(*halves[0], None, length)
+        c2, clast2 = rglru_scan_chunked(*halves[1], clast1, length)
         compare("state_chaining", (torch.cat([h1, h2], dim=1), last2),
-                rglru_scan_reference(a, x), dtype, {"shape": [1, 64, 128]})
+                rglru_scan_reference(a, x), (torch.cat([c1, c2], dim=1), clast2),
+                dtype, {"shape": [1, 64, 128]})
     for b, s, w, with_h0 in RGLRU_MODEL:
         a, bx = model_gates(b, s, w, gen)
         h0 = torch.randn((b, w), generator=gen, device="cuda") if with_h0 else None
-        compare("model", rglru_kernel.rglru_scan_cuda(a, bx, h0),
-                rglru_scan_reference(a, bx, h0), torch.float32,
-                {"shape": [b, s, w], "h0": with_h0})
+        # A decode tick (S = 1) is one chunk: the sequential scan itself.
+        check("model", a, bx, h0, torch.float32, {"shape": [b, s, w], "h0": with_h0},
+              sequential=s <= rglru_kernel.chunk_plan(s, w).length)
     return worst
 
 
@@ -933,23 +1022,37 @@ def visible_pairs(s: int, window: int) -> int:
 
 def rmsnorm_work(serve, gen):
     """The serve phase's RMS-norm launches: [S, D] per prefill pass, [slots,
-    D] per tick, bf16 rows and scale."""
+    D] per tick, bf16 rows and scale.  Its classes: the prefill's launches
+    and the ticks'; its floor: as many launches at [1, 8]."""
     cfg = serve["cfg"]
     D, per_pass, bf16 = cfg.d_model, 2 * cfg.num_layers + 1, torch.bfloat16
-    rows = [s for s in serve["prompt_lens"] for _ in range(per_pass)]
-    rows += [SERVE_SLOTS] * (per_pass * serve["ticks"])
+    by_class = {"prefill": [s for s in serve["prompt_lens"] for _ in range(per_pass)],
+                "tick": [SERVE_SLOTS] * (per_pass * serve["ticks"])}
+    rows = by_class["prefill"] + by_class["tick"]
     scale = (0.2 * torch.randn((D,), generator=gen, device="cuda")).to(bf16)
     xs = {n: torch.randn((n, D), generator=gen, device="cuda").to(bf16)
           for n in set(rows)}
     weight = (1.0 + scale.float()).to(bf16)
+
+    def kernel(n):
+        return lambda: rms_kernel.rms_norm_cuda(xs[n], scale)
+
+    def bytes_ms(ns):
+        return sum(2 * n * D * 2 + D * 2 for n in ns) / HBM_BYTES_PER_S * 1e3
+
     calls = {
-        "ms": [lambda n=n: rms_kernel.rms_norm_cuda(xs[n], scale) for n in rows],
+        "ms": [kernel(n) for n in rows],
         "plain_ms": [lambda n=n: rms_norm_reference(xs[n], scale) for n in rows],
         "library_ms": [lambda n=n: F.rms_norm(xs[n], (D,), weight, cfg.norm_eps)
                        for n in rows],
     }
-    nbytes = sum(2 * n * D * 2 + D * 2 for n in rows)
-    return calls, 0.0, nbytes / HBM_BYTES_PER_S * 1e3
+    least_x = torch.randn((1, 8), generator=gen, device="cuda").to(bf16)
+    least_scale = torch.zeros((8,), device="cuda", dtype=bf16)
+    split = {"classes": {c: ([kernel(n) for n in ns], bytes_ms(ns))
+                         for c, ns in by_class.items()},
+             "floor": [lambda: rms_kernel.rms_norm_cuda(least_x, least_scale)]
+             * len(rows)}
+    return calls, 0.0, bytes_ms(rows), split
 
 
 def flash_work(serve, gen):
@@ -986,7 +1089,7 @@ def flash_work(serve, gen):
     flops = sum(4 * H * hd * visible_pairs(s, w) for s, w in launches)
     nbytes = sum(2 * s * (2 * H + 2 * KV) * hd for s, _ in launches)
     return (calls, flops / BF16_FLOPS_PER_S * 1e3,
-            nbytes / HBM_BYTES_PER_S * 1e3)
+            nbytes / HBM_BYTES_PER_S * 1e3, None)
 
 
 def rglru_work(serve, gen):
@@ -994,33 +1097,54 @@ def rglru_work(serve, gen):
     layer per prefill; [slots, 1, W] with the f32 state h0 per rec layer per
     tick.  The plain version launches three kernels a time step, so its
     prefill calls fill the launch queue and its replay is paced by the host
-    (``spun_device_ms``)."""
+    (``spun_device_ms``).  Its classes: the prefills' launches and the
+    ticks'; its floor: as many launches at [1, 1, 1]."""
     cfg = serve["cfg"]
     W, rec = cfg.rnn_width or cfg.d_model, cfg.layer_counts().get("rec", 0)
     lens = serve["prompt_lens"]
     a_p, b_p = model_gates(1, max(lens), W, gen, seed=1)
     a_t, b_t = model_gates(SERVE_SLOTS, 1, W, gen, seed=2)
     h0 = torch.randn((SERVE_SLOTS, W), generator=gen, device="cuda")
-    one_layer = [(a_p[:, :s], b_p[:, :s], None) for s in lens]
-    one_layer += [(a_t, b_t, h0)] * serve["ticks"]
+    prefill = [(a_p[:, :s], b_p[:, :s], None) for s in lens]
+    tick = [(a_t, b_t, h0)] * serve["ticks"]
+    one_layer = prefill + tick
+
+    def kernel(args):
+        return lambda: rglru_kernel.rglru_scan_cuda(*args)
+
+    def bytes_ms(steps, rows_with_h0, rows):
+        # a, b and h f32 at every step; h0 read and h_last written per row
+        return (12 * steps * W + 4 * W * (rows + rows_with_h0)) * rec \
+            / HBM_BYTES_PER_S * 1e3
+
     calls = {
-        "ms": [lambda c=c: rglru_kernel.rglru_scan_cuda(*c)
-               for c in one_layer * rec],
+        "ms": [kernel(c) for c in one_layer * rec],
         "plain_ms": [lambda c=c: rglru_scan_reference(*c)
                      for c in one_layer * rec],
         "library_ms": None,  # no PyTorch call computes a linear recurrence
     }
-    elems = (sum(lens) + SERVE_SLOTS * serve["ticks"]) * W * rec
-    nbytes = 12 * elems + 4 * W * rec * (len(lens) + 2 * SERVE_SLOTS * serve["ticks"])
+    ticks = SERVE_SLOTS * serve["ticks"]
+    elems = (sum(lens) + ticks) * W * rec
+    least = torch.rand((1, 1, 1), generator=gen, device="cuda")
+    split = {"classes": {
+        "prefill": ([kernel(c) for c in prefill * rec],
+                    bytes_ms(sum(lens), 0, len(lens))),
+        "tick": ([kernel(c) for c in tick * rec], bytes_ms(ticks, ticks, ticks))},
+        "floor": [lambda: rglru_kernel.rglru_scan_cuda(least, least)]
+        * len(calls["ms"])}
     return (calls, 2 * elems / FP32_FLOPS_PER_S * 1e3,
-            nbytes / HBM_BYTES_PER_S * 1e3)
+            bytes_ms(sum(lens) + ticks, ticks, len(lens) + ticks), split)
 
 
 def kernel_rows(serves: dict, errs: dict) -> list[dict]:
     """Time the serve phases' kernel work again, launch for launch, beside
     the plain version and a library call at the same shapes.  A kernel's
     row sums over the serving paths that launch it; ``host_paced`` lists
-    the times whose replay the host may have paced (``spun_device_ms``)."""
+    the times whose replay the host may have paced (``spun_device_ms``).
+    RMS norm and RG-LRU also time their prefill and tick launches apart
+    (``prefill``, ``tick``: launches, ms and the bytes bound of each) and
+    the same number of launches at the kernel's least shape
+    (``launch_floor_ms``)."""
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     gen = torch.Generator("cuda").manual_seed(3)
     out = []
@@ -1035,11 +1159,13 @@ def kernel_rows(serves: dict, errs: dict) -> list[dict]:
     ):
         total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ops_ms": 0.0,
                  "bytes_ms": 0.0, "launches": 0}
+        classes: dict[str, dict] = {}
+        floor_ms = 0.0
         host_paced = set()
         for arch, serve in serves.items():
             if not serve["launches"][key]:
                 continue
-            calls, ops_ms, bytes_ms = work(serve, gen)
+            calls, ops_ms, bytes_ms, split = work(serve, gen)
             times, paced = {}, []
             for k, fns in calls.items():
                 if fns is None:
@@ -1061,6 +1187,23 @@ def kernel_rows(serves: dict, errs: dict) -> list[dict]:
                              ops_ms * BF16_FLOPS_PER_S / times["library_ms"] / 1e12,
                          "ms_over_library": times["ms"] / times["library_ms"],
                          "share_of_bound": ops_ms / times["ms"]}
+            if split:  # the classes and the floor, each replayed on its own
+                for cls, (fns, cls_bytes_ms) in split["classes"].items():
+                    ms, by_host = spun_device_ms(fns, clock_hz)
+                    if by_host:
+                        paced.append(f"{cls}.ms")
+                    extra[cls] = {"launches": len(fns), "ms": ms,
+                                  "bytes_bound_ms": cls_bytes_ms}
+                    summed = classes.setdefault(
+                        cls, {"launches": 0, "ms": 0.0, "bytes_bound_ms": 0.0})
+                    for k in summed:
+                        summed[k] += extra[cls][k]
+                split["floor"][0]()  # warm-up
+                ms, by_host = spun_device_ms(split["floor"], clock_hz)
+                if by_host:
+                    paced.append("launch_floor_ms")
+                extra["launch_floor_ms"] = ms
+                floor_ms += ms
             emit({"phase": "kernel_time", "kernel": name, "arch": arch,
                   "launches": len(calls["ms"]), **times, "host_paced": paced,
                   "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms, **extra})
@@ -1087,6 +1230,9 @@ def kernel_rows(serves: dict, errs: dict) -> list[dict]:
         if key == "flash":
             row["tflops"] = total["ops_ms"] * BF16_FLOPS_PER_S / total["ms"] / 1e12
             row["ms_over_library"] = total["ms"] / total["library_ms"]
+        if classes:
+            row.update(classes)
+            row["launch_floor_ms"] = floor_ms
         out.append(row)
     return out
 

@@ -1,9 +1,10 @@
 """RG-LRU scan as a CUDA kernel for Hopper.
 
-The kernel is ``csrc/rglru.cu`` (see the note at its head); it replaces the
-TPU kernel ``_rglru_kernel`` of the JAX package.  This module builds it at
-first use, binds its C entry point with ctypes and launches it on
-PyTorch's current stream.  ``LAUNCHES`` counts the launches, so a run can
+The kernel is ``csrc/rglru.cu`` (see the note at its head), a chunked
+parallel scan over S; it replaces the TPU kernel ``_rglru_kernel`` of the
+JAX package.  This module builds it at first use, binds its C entry point
+with ctypes and launches it on PyTorch's current stream with the plan of
+``chunk_plan``.  ``LAUNCHES`` counts the launches (one a call), so a run can
 show that its work went through the kernel.
 """
 
@@ -13,6 +14,7 @@ import ctypes
 import functools
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -21,10 +23,41 @@ from repro_torch.kernels._build import load_library
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru.cu"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 NO_H0 = -1  # the dtype code that says h0 is absent (zeros)
-MAX_BATCH = 65535  # the grid's y dimension
+MAX_BATCH = 65535  # the grid's z dimension
+TILE = 16  # steps a thread loads at once: the shortest chunk
+MAX_CHUNKS_PER_CTA = 8  # one warp a chunk
+MAX_CTAS = 8  # CTAs of a cluster, the portable limit
+MAX_CHUNKS = MAX_CHUNKS_PER_CTA * MAX_CTAS
+CHUNKED_STRIPE = 32  # channels a CTA owns when S is chunked: a warp a chunk
+SEQUENTIAL_STRIPE = 128  # channels a CTA owns for one chunk
 
 LAUNCHES = 0
 _count_lock = threading.Lock()
+
+
+class ChunkPlan(NamedTuple):
+    length: int  # L, steps a chunk
+    chunks: int  # C, chunks over S
+    per_cta: int  # chunks a CTA
+    ctas: int  # CTAs a cluster, along the grid's y
+    stripe: int  # channels a CTA, one a thread
+    stripes: int  # the grid's x: ceil(W / stripe)
+
+
+def chunk_plan(seq_len: int, width: int) -> ChunkPlan:
+    """How a scan over ``seq_len`` steps of ``width`` channels is cut.
+
+    It depends on S and W only, never on the batch: a row's h is the same
+    bits whatever rows share its launch.  Chunks are at least one tile
+    long, and up to 64 of them cover S, spread over up to 8 CTAs of a
+    cluster; S <= TILE is one chunk, the sequential scan itself.
+    """
+    length = max(TILE, -(-seq_len // MAX_CHUNKS))
+    chunks = max(1, -(-seq_len // length))
+    per_cta = -(-chunks // MAX_CTAS)
+    ctas = -(-chunks // per_cta)
+    stripe = CHUNKED_STRIPE if chunks > 1 else SEQUENTIAL_STRIPE
+    return ChunkPlan(length, chunks, per_cta, ctas, stripe, -(-width // stripe))
 
 
 @functools.cache
@@ -33,7 +66,8 @@ def load() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     fn = lib.rglru_launch
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i32, i32, i32, ptr]
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i32, i32, i32,
+                   i64, i32, i32, i32, i32, i64, ptr]
     fn.restype = ctypes.c_int
     lib.rglru_error_string.argtypes = [ctypes.c_int]
     lib.rglru_error_string.restype = ctypes.c_char_p
@@ -73,6 +107,7 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
     h_last = torch.empty((B, W), dtype=torch.float32, device=a.device)
     if B == 0 or W == 0:
         return h, h_last
+    plan = chunk_plan(S, W)
     lib = load()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -81,7 +116,7 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
             None if h0 is None else h0.data_ptr(), h.data_ptr(),
             h_last.data_ptr(), B, S, W, DTYPE_CODES[a.dtype],
             DTYPE_CODES[b.dtype],
-            NO_H0 if h0 is None else DTYPE_CODES[h0.dtype], stream)
+            NO_H0 if h0 is None else DTYPE_CODES[h0.dtype], *plan, stream)
     if err != 0:
         raise RuntimeError(
             "rglru kernel launch failed: "

@@ -5,23 +5,54 @@
 // row of x [N, D]:  out = x * (1 / sqrt(mean(x^2) + eps)) * (1 + scale),
 // computed in f32 and written once in x's type.
 //
-// What bounds it: bytes.  Each element is read, squared and added, then
-// read again (from L1/L2: a row is at most a few tens of KB), scaled twice
-// and written: a few FP32 operations per 2 * sizeof(x) bytes of device
-// memory traffic, far below the card's ratio of operations to bytes.  The
-// least time is 2 * N * D * sizeof(x) / 3.35 TB/s.
+// What bounds it: bytes.  A few FP32 operations per element against reading
+// x once and writing out once: the least time is (2 * N * D * sizeof(x) +
+// D * sizeof(scale)) / 3.35 TB/s.
 //
-// Design: one block per row, so any N works with no padding (the TPU
-// version pads N to its 256-row blocks).  Threads stride over the row with
-// 16-byte vector loads (4 f32 or 8 bf16) where D and the pointers allow it,
-// and with scalar loads otherwise.  The sum of squares is reduced in f32
-// within each warp by shuffles, then across warps through shared memory.
-// The block has 32 to 256 threads, about one per vector of the row.
+// Design: a launch is one memory pass over x.  A row is cut into units, 16
+// bytes of x each (8 bf16 or 4 f32; one element where D is not a multiple of
+// that), and a row's threads hold up to kPer = 2 units each in registers,
+// unit u on thread u % threads: neighbouring threads read neighbouring 16
+// bytes.  A row is at most 1,024 threads of 2 units (16,384 bf16, 8,192 f32,
+// 2,048 elements on the one-element path); more units a thread spill at
+// 1,024 threads, and fewer threads would hold no wider a row.
+// Every thread first issues all its loads, x's units and the matching units
+// of scale (vectors too, 8 or 16 bytes), so a launch waits on one memory
+// latency; then it sums its squares, the row reduces them (warp shuffles,
+// then the row's warps through shared memory), and the thread scales the
+// values it holds and stores them.  From device memory the kernel moves the
+// bound's bytes: x once, out once; every row reads scale, which after the
+// first comes from L2.
 //
-// Rounding: the reciprocal square root is 1.0f / sqrtf(v), both correctly
-// rounded (nvcc's default -prec-sqrt=true -prec-div=true), rather than
-// rsqrtf, whose error of up to 2 ulp could use up the f32 tolerance of
-// 1e-6 on its own.  The mean divides the sum by D, as jnp.mean does.
+// The launch plan (unit, threads a row, rows a block) is
+// `launch_plan` in kernel.py and depends on D and x's type only, never on N:
+// a row's reduction order is the same in a [1, D], [4, D] or [3000, D] launch,
+// so a batch-4 decode tick normalises a row to the same bits as a batch-1
+// one (the serving engine's greedy decode must equal offline decode).  A row
+// takes enough threads that each holds one or two units where it can: D 4096
+// bf16 is 256 threads of 2 units, D 2560 bf16 160 threads of 2.  Narrow rows
+// share a block of up to 256 threads.  Every block is one row group, so the
+// prefill's [S, D] launches put S blocks on the 132 SMs, up to 8 resident on
+// each (8 x 8 KB in flight an SM at D 4096 bf16).
+//
+// The decode tick's [4, D] launches move 65 KB at most: 20 ns of bytes.  What
+// they cost is the launch and one load latency; `chip_smoke.py` times the
+// same kernel at [1, 8] as often as the path launches it
+// (`launch_floor_ms`), the least time any design can reach.  A cluster of
+// CTAs a row, reducing through distributed shared memory, would add a
+// cluster barrier to the one latency a row waits on, and was not tried: the
+// tick's launches already run within half a microsecond of that floor.
+//
+// Rounding: the kernel rounds where the plain version (ref.py) rounds on the
+// card, so that it agrees with it within 1e-6 in f32 where outputs reach 8
+// and one ulp is 9.5e-7: each square is rounded before it is added (torch
+// squares in one launch and sums in the next), the mean is the sum times
+// 1/D rounded to f32 (torch's mean multiplies by that factor), eps is added
+// on its own, and the reciprocal square root is rsqrtf, the instruction
+// torch.rsqrt runs on the card (it differs from a correctly rounded
+// 1 / sqrt by up to 2 ulp; `chip_smoke.py`'s rmsnorm_rsqrt phase counts how
+// often).  Only the order of the sum of squares differs from the plain
+// version's, so the two agree within the tolerance, not bit for bit.
 //
 // The entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -32,7 +63,9 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kWarp = 32;
+constexpr int kMaxBlock = 1024;
+constexpr int kPer = 2;  // units a thread holds
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -43,109 +76,132 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16_rn(v);
 }
 
-// 16 bytes of T as one aligned vector.
-template <typename T>
-struct alignas(16) Vec {
-  static constexpr int kN = 16 / sizeof(T);
-  T v[kN];
+constexpr int pack_align(int bytes) { return bytes < 16 ? bytes : 16; }
+
+// N elements of T loaded and stored as one (or two) aligned vectors.
+template <typename T, int N>
+struct alignas(pack_align(int(sizeof(T)) * N)) Pack {
+  T v[N];
 };
 
-__device__ __forceinline__ float block_sum(float v, float* shared) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) shared[warp] = v;
-  __syncthreads();
-  const int warps = (blockDim.x + 31) / 32;
-  v = lane < warps ? shared[lane] : 0.f;
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;  // every thread holds the block's sum
-}
+template <typename T, typename S, int kUnit>
+__global__ void __launch_bounds__(kMaxBlock)
+rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale, T* __restrict__ out,
+               int64_t rows, int cols, int threads, float eps) {
+  __shared__ float partial[kMaxBlock / kWarp];
+  using XP = Pack<T, kUnit>;
+  using SP = Pack<S, kUnit>;
+  const int group = threadIdx.x / threads, tid = threadIdx.x % threads;
+  const int64_t row = int64_t(blockIdx.x) * (blockDim.x / threads) + group;
+  const bool live = row < rows;
+  const int units = cols / kUnit;
+  const XP* xr = reinterpret_cast<const XP*>(x + row * cols);
+  const SP* sr = reinterpret_cast<const SP*>(scale);
 
-template <typename T, typename S, bool kVector>
-__global__ void rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
-                               T* __restrict__ out, int64_t cols, float eps) {
-  __shared__ float partial[kMaxThreads / 32];
-  const int64_t row = blockIdx.x;
-  const T* xr = x + row * cols;
-  T* outr = out + row * cols;
-  using V = Vec<T>;
-  constexpr int kN = V::kN;
+  // Every load first: x's units and scale's, all independent.
+  XP xv[kPer];
+  SP sv[kPer];
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const int u = tid + p * threads;
+    if (live && u < units) {
+      xv[p] = xr[u];
+      sv[p] = sr[u];
+    } else {
+#pragma unroll
+      for (int e = 0; e < kUnit; ++e) {
+        xv[p].v[e] = from_float<T>(0.f);
+        sv[p].v[e] = from_float<S>(0.f);
+      }
+    }
+  }
 
   float ss = 0.f;
-  if (kVector) {
-    const V* xv = reinterpret_cast<const V*>(xr);
-    for (int64_t i = threadIdx.x; i < cols / kN; i += blockDim.x) {
-      const V chunk = xv[i];
 #pragma unroll
-      for (int e = 0; e < kN; ++e) {
-        const float f = to_float(chunk.v[e]);
-        ss += f * f;
-      }
+  for (int p = 0; p < kPer; ++p)
+#pragma unroll
+    for (int e = 0; e < kUnit; ++e) {
+      const float f = to_float(xv[p].v[e]);
+      ss = __fadd_rn(ss, __fmul_rn(f, f));
     }
-  } else {
-    for (int64_t i = threadIdx.x; i < cols; i += blockDim.x) {
-      const float f = to_float(xr[i]);
-      ss += f * f;
-    }
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  if (threads > kWarp) {  // the same for every thread of the block
+    const int warps = threads / kWarp, lane = threadIdx.x % kWarp;
+    if (lane == 0) partial[threadIdx.x / kWarp] = ss;
+    __syncthreads();
+    ss = lane < warps ? partial[group * warps + lane] : 0.f;
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
   }
-  ss = block_sum(ss, partial);
-  const float inv = 1.0f / sqrtf(ss / float(cols) + eps);
+  if (!live) return;
+  const float inv = rsqrtf(__fadd_rn(__fmul_rn(ss, 1.0f / float(cols)), eps));
 
-  if (kVector) {
-    const V* xv = reinterpret_cast<const V*>(xr);
-    V* ov = reinterpret_cast<V*>(outr);
-    for (int64_t i = threadIdx.x; i < cols / kN; i += blockDim.x) {
-      const V chunk = xv[i];
-      V res;
+  XP* orow = reinterpret_cast<XP*>(out + row * cols);
 #pragma unroll
-      for (int e = 0; e < kN; ++e) {
-        const float s = to_float(scale[i * kN + e]);
-        res.v[e] = from_float<T>((to_float(chunk.v[e]) * inv) * (1.0f + s));
-      }
-      ov[i] = res;
-    }
-  } else {
-    for (int64_t i = threadIdx.x; i < cols; i += blockDim.x) {
-      const float s = to_float(scale[i]);
-      outr[i] = from_float<T>((to_float(xr[i]) * inv) * (1.0f + s));
+  for (int p = 0; p < kPer; ++p) {
+    const int u = tid + p * threads;
+    if (u < units) {
+      XP res;
+#pragma unroll
+      for (int e = 0; e < kUnit; ++e)
+        res.v[e] = from_float<T>((to_float(xv[p].v[e]) * inv) * (1.0f + to_float(sv[p].v[e])));
+      orow[u] = res;
     }
   }
+}
+
+template <typename T, typename S, int kUnit>
+int launch_unit(const void* x, const void* scale, void* out, int64_t rows, int cols,
+                int threads, int rows_per_block, float eps, cudaStream_t stream) {
+  if (rows_per_block * threads > kMaxBlock) return int(cudaErrorInvalidValue);
+  const int64_t blocks = (rows + rows_per_block - 1) / rows_per_block;
+  if (blocks > 2147483647LL) return int(cudaErrorInvalidValue);
+  rmsnorm_kernel<T, S, kUnit><<<unsigned(blocks), rows_per_block * threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const S*>(scale), static_cast<T*>(out), rows, cols,
+      threads, eps);
+  return int(cudaGetLastError());
 }
 
 template <typename T, typename S>
-int launch(const void* x, const void* scale, void* out, int64_t rows, int64_t cols,
-           float eps, cudaStream_t stream) {
-  constexpr int kN = Vec<T>::kN;
-  const bool vector = cols % kN == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const int64_t per_row = vector ? cols / kN : cols;
-  int threads = int(((per_row + 31) / 32) * 32);
-  threads = threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads : threads);
-  const auto* xt = static_cast<const T*>(x);
-  const auto* st = static_cast<const S*>(scale);
-  auto* ot = static_cast<T*>(out);
-  if (vector)
-    rmsnorm_kernel<T, S, true><<<unsigned(rows), threads, 0, stream>>>(xt, st, ot, cols, eps);
-  else
-    rmsnorm_kernel<T, S, false><<<unsigned(rows), threads, 0, stream>>>(xt, st, ot, cols, eps);
-  return int(cudaGetLastError());
+int launch(const void* x, const void* scale, void* out, int64_t rows, int cols, int unit,
+           int threads, int rows_per_block, float eps, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (unit == kVec) {
+    const uintptr_t align_s = pack_align(int(sizeof(S)) * kVec);
+    if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(out) % 16 ||
+        reinterpret_cast<uintptr_t>(scale) % align_s)
+      return int(cudaErrorMisalignedAddress);
+    return launch_unit<T, S, kVec>(x, scale, out, rows, cols, threads, rows_per_block, eps,
+                                   stream);
+  }
+  if (unit == 1)
+    return launch_unit<T, S, 1>(x, scale, out, rows, cols, threads, rows_per_block, eps, stream);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16 (x and out share one type).
+// dtype codes: 0 = float32, 1 = bfloat16 (x and out share one type).  The
+// plan (unit, threads, rows_per_block) comes from kernel.launch_plan; a plan
+// that does not cover the row or fit a block is refused.
 extern "C" int rmsnorm_launch(const void* x, const void* scale, void* out, int64_t rows,
-                              int64_t cols, int x_dtype, int scale_dtype, float eps,
+                              int64_t cols, int x_dtype, int scale_dtype, int unit,
+                              int threads, int rows_per_block, float eps,
                               cudaStream_t stream) {
-  if (rows <= 0 || rows > 2147483647LL || cols <= 0) return int(cudaErrorInvalidValue);
+  if (rows <= 0 || cols <= 0 || cols > 2147483647LL || unit <= 0 || cols % unit ||
+      threads < kWarp || threads % kWarp || rows_per_block < 1 ||
+      int64_t(threads) * kPer * unit < cols)
+    return int(cudaErrorInvalidValue);
+  const int c = int(cols);
   if (x_dtype == 0 && scale_dtype == 0)
-    return launch<float, float>(x, scale, out, rows, cols, eps, stream);
+    return launch<float, float>(x, scale, out, rows, c, unit, threads, rows_per_block, eps, stream);
   if (x_dtype == 0 && scale_dtype == 1)
-    return launch<float, __nv_bfloat16>(x, scale, out, rows, cols, eps, stream);
+    return launch<float, __nv_bfloat16>(x, scale, out, rows, c, unit, threads, rows_per_block, eps, stream);
   if (x_dtype == 1 && scale_dtype == 0)
-    return launch<__nv_bfloat16, float>(x, scale, out, rows, cols, eps, stream);
+    return launch<__nv_bfloat16, float>(x, scale, out, rows, c, unit, threads, rows_per_block, eps, stream);
   if (x_dtype == 1 && scale_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, scale, out, rows, cols, eps, stream);
+    return launch<__nv_bfloat16, __nv_bfloat16>(x, scale, out, rows, c, unit, threads, rows_per_block, eps, stream);
   return int(cudaErrorInvalidValue);
 }
 

@@ -3,8 +3,9 @@
 The kernel is ``csrc/rmsnorm.cu`` (see the note at its head); it replaces
 the TPU kernel ``_rmsnorm_kernel`` of the JAX package.  This module builds
 it at first use, binds its C entry point with ctypes and launches it on
-PyTorch's current stream.  ``LAUNCHES`` counts the launches, so a run can
-show that its work went through the kernel.
+PyTorch's current stream with the plan of ``launch_plan``.  ``LAUNCHES``
+counts the launches, so a run can show that its work went through the
+kernel.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import ctypes
 import functools
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -21,8 +23,36 @@ from repro_torch.kernels._build import load_library
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+UNIT_BYTES = 16  # x's bytes in one vector unit
+PER_THREAD = 2  # units a thread holds at most (kPer in the source)
+MAX_THREADS = 1024  # threads of one row at most
+BLOCK_THREADS = 256  # narrow rows share a block of up to this many threads
+
 LAUNCHES = 0
 _count_lock = threading.Lock()
+
+
+class Plan(NamedTuple):
+    unit: int  # elements of a unit: 16 bytes of x, or 1
+    threads: int  # threads of one row, a multiple of 32
+    rows_per_block: int
+
+
+def launch_plan(cols: int, dtype: torch.dtype) -> Plan:
+    """How a row of ``cols`` elements of ``dtype`` is cut over threads.
+
+    It depends on the row's width and type only, never on the number of
+    rows: a row reduces in the same order whatever launch it is in.  A row
+    takes enough threads that each holds one or two units where it can.
+    """
+    vec = UNIT_BYTES // torch.empty((), dtype=dtype).element_size()
+    unit = vec if cols % vec == 0 else 1
+    units = cols // unit
+    threads = -(-units // (32 * PER_THREAD)) * 32  # ceil(units / 2), in warps
+    if threads > MAX_THREADS:
+        raise ValueError(f"rows of {cols} {dtype} elements are wider than the "
+                         f"kernel's {PER_THREAD * MAX_THREADS} units of {unit}")
+    return Plan(unit, threads, max(1, BLOCK_THREADS // threads))
 
 
 @functools.cache
@@ -30,8 +60,9 @@ def load() -> ctypes.CDLL:
     """Build (first call only) and bind the kernel's library."""
     lib = load_library(SOURCE)
     fn = lib.rmsnorm_launch
+    i32 = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int64, ctypes.c_int64, i32, i32, i32, i32, i32,
                    ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.rmsnorm_error_string.argtypes = [ctypes.c_int]
@@ -59,13 +90,17 @@ def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
+    plan = launch_plan(x.shape[1], x.dtype)
+    if plan.unit > 1:  # vector loads: a view off a 16-byte boundary is copied
+        x, scale = (t if t.data_ptr() % UNIT_BYTES == 0 else t.clone()
+                    for t in (x, scale))
     lib = load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rmsnorm_launch(
             x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.shape[0],
-            x.shape[1], DTYPE_CODES[x.dtype], DTYPE_CODES[scale.dtype], eps,
-            stream)
+            x.shape[1], DTYPE_CODES[x.dtype], DTYPE_CODES[scale.dtype], *plan,
+            eps, stream)
     if err != 0:
         raise RuntimeError(
             "rmsnorm kernel launch failed: "

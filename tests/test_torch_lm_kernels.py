@@ -12,6 +12,8 @@ attention 2e-6 against the reference, 3e-6 against the model's blockwise
 path, 2e-2 in bf16.
 """
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from repro.kernels.flash_attention.ref import attention_reference as jax_flash_r
 from repro.kernels.rmsnorm import ops as jax_rms_ops
 from repro.kernels.rmsnorm.ref import rms_norm_reference as jax_rms_ref
 from repro.models.attention import attention_blockwise as jax_blockwise
+from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -48,7 +51,8 @@ def _close(port: torch.Tensor, ref, atol: float) -> None:
 
 # -- RMS norm ------------------------------------------------------------------
 
-RMS_SHAPES = [(8, 512), (3, 100, 256), (4, 1000), (9, 77)]
+# recurrentgemma-2b's D = 2560 and yi-9b's one row of D = 4096 among them.
+RMS_SHAPES = [(8, 512), (3, 100, 256), (4, 1000), (9, 77), (4, 2560), (1, 4096)]
 RMS_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
 
 
@@ -67,6 +71,42 @@ def test_rmsnorm_plain_version_matches_jax(shape, dtype, oracle):
     got = rms_ops.rms_norm(tx, torch.from_numpy(scale))
     assert got.dtype == tx.dtype and got.shape == tx.shape
     _close(got, want, RMS_TOL[dtype])
+
+
+def _norm_widths(cfg):
+    """Every row width the model normalises: d_model, and head_dim where
+    queries and keys are normalised."""
+    return {cfg.d_model, cfg.head_dim} if cfg.use_qk_norm else {cfg.d_model}
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_rmsnorm_launch_plan_covers_every_configs_widths(arch, dtype):
+    for cfg in (get_config(arch), get_config(arch).smoke()):
+        for d in _norm_widths(cfg):
+            plan = rms_kernel.launch_plan(d, dtype)
+            vec = rms_kernel.UNIT_BYTES // torch.empty((), dtype=dtype).element_size()
+            assert plan.unit in (1, vec) and d % plan.unit == 0
+            assert plan.unit == vec or d % vec  # vector units wherever D allows
+            assert plan.threads % 32 == 0 and plan.threads <= rms_kernel.MAX_THREADS
+            units = d // plan.unit
+            # the row fits, two units a thread, with no warp left idle
+            assert plan.threads * rms_kernel.PER_THREAD >= units
+            assert (plan.threads - 32) * rms_kernel.PER_THREAD < units
+            assert plan.rows_per_block * plan.threads <= max(
+                rms_kernel.BLOCK_THREADS, plan.threads)
+
+
+def test_rmsnorm_launch_plan_is_a_rows_width_and_type_only():
+    """The plan takes no row count, so a row reduces the same in every
+    launch; rows wider than the kernel holds are refused."""
+    assert list(inspect.signature(rms_kernel.launch_plan).parameters) == [
+        "cols", "dtype"]
+    assert rms_kernel.launch_plan(4096, torch.bfloat16) == (8, 256, 1)
+    assert rms_kernel.launch_plan(2560, torch.bfloat16) == (8, 160, 1)
+    assert rms_kernel.launch_plan(77, torch.float32) == (1, 64, 4)
+    with pytest.raises(ValueError, match="wider than"):
+        rms_kernel.launch_plan(2 * rms_kernel.MAX_THREADS * 4 + 4, torch.float32)
 
 
 def test_rmsnorm_cpu_entry_point_is_the_plain_version():

@@ -2,13 +2,15 @@
 the CPU.
 
 Inputs are made with numpy from a seed and cast to each dtype by each
-framework.  The plain version is held against the JAX package's
-``rglru_scan_reference`` (its Pallas kernel does not trace on this jax,
-ROADMAP queue 3) at the tolerances of ``tests/test_kernels.py``: 1e-5 in
-float32, 5e-2 in bfloat16.  The model's parts are held against the JAX
-model's within 1e-5 (float32; the JAX model's associative scan and the
-port's sequential one differ by rounding only).  The CUDA kernel runs only
-on the card, where ``chip_smoke.py`` holds it against the plain version.
+framework.  The plain versions, the sequential scan and the chunked one
+(the CUDA kernel's order of operations at ``chunk_plan``'s chunk length),
+are held against the JAX package's ``rglru_scan_reference`` (its Pallas
+kernel does not trace on this jax, ROADMAP queue 3) at the tolerances of
+``tests/test_kernels.py``: 1e-5 in float32, 5e-2 in bfloat16.  The model's
+parts are held against the JAX model's within 1e-5 (float32; the JAX
+model's associative scan and the port's sequential one differ by rounding
+only).  The CUDA kernel runs only on the card, where ``chip_smoke.py``
+holds it against both plain versions.
 """
 
 import jax
@@ -112,6 +114,123 @@ def test_rglru_cpu_entry_point_is_the_plain_version():
         want = rglru_ref.rglru_scan_reference(a, x, h_init)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert rglru_kernel.LAUNCHES == before
+
+
+# -- the chunked scan, the kernel's order of operations ------------------------------
+
+L = rglru_kernel.TILE  # the chunk length of every S up to 1,024
+CHUNK_EDGES = [0, 1, L - 1, L, L + 1, 3 * L + 5]
+EDGE_W = 40
+
+
+def _chunked(ta, tx, th):
+    plan = rglru_kernel.chunk_plan(ta.shape[1], ta.shape[2])
+    return rglru_ref.rglru_scan_chunked(ta, tx, th, plan.length)
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zeros", "h0"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("s", CHUNK_EDGES)
+def test_rglru_chunked_matches_jax_reference(s, b, dtype, with_h0):
+    a, x, h0 = _scan_inputs(b, s, EDGE_W, seed=s)
+    (ja, ta), (jx, tx), (jh, th) = (_both(v, dtype) for v in (a, x, h0))
+    if s:
+        want_h, want_last = jax_rglru_ref(ja, jx, jh if with_h0 else None)
+    else:  # the JAX reference's scan cannot index an empty S: no step, h0 out
+        want_h = np.zeros((b, 0, EDGE_W), np.float32)
+        want_last = np.asarray(jh, np.float32) if with_h0 else np.zeros((b, EDGE_W))
+    got_h, got_last = _chunked(ta, tx, th if with_h0 else None)
+    assert got_h.dtype == ta.dtype and got_h.shape == ta.shape
+    assert got_last.dtype == torch.float32 and got_last.shape == (b, EDGE_W)
+    _close(got_h, want_h, SCAN_TOL[dtype])
+    _close(got_last, want_last, SCAN_TOL[dtype])
+
+
+def _model_gates(s, w, seed):
+    """(a, bx) as recurrentgemma's gates make them, from one layer's RG-LRU
+    parameters and x ~ N(0, 1)."""
+    layer = {k: v[0] for k, v in init_params(
+        port_rec.rglru_param_specs(1, w), seed, "cpu").items()}
+    x = np.random.default_rng(seed).standard_normal((1, s, w), dtype=np.float32)
+    return [t.numpy() for t in port_rec._gates(layer, torch.from_numpy(x))]
+
+
+def _slow_decay(s, w, seed):
+    """a in (0.99, 0.9999) and b = sqrt(1 - a^2) x: a long memory, |h| ~ 1."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.99, 0.9999, (1, s, w)).astype(np.float32)
+    x = rng.standard_normal((1, s, w), dtype=np.float32)
+    return [a, (np.sqrt(1 - a * a) * x).astype(np.float32)]
+
+
+@pytest.mark.parametrize("s,w,make", [(3000, 2560, _model_gates),
+                                      (3000, 512, _slow_decay)],
+                         ids=["model_gates", "slow_decay"])
+def test_rglru_chunked_matches_jax_reference_at_the_models_length(s, w, make):
+    a, bx = make(s, w, 7)
+    assert rglru_kernel.chunk_plan(s, w).chunks > 1
+    want_h, want_last = jax_rglru_ref(jnp.asarray(a), jnp.asarray(bx))
+    got_h, got_last = _chunked(torch.from_numpy(a), torch.from_numpy(bx), None)
+    _close(got_h, want_h, SCAN_TOL["float32"])
+    _close(got_last, want_last, SCAN_TOL["float32"])
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zeros", "h0"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("s", [0, 1, L - 1, L])
+def test_rglru_chunked_is_the_sequential_scan_within_one_chunk(s, dtype,
+                                                               with_h0):
+    """S <= L is one chunk: exactly the plain sequential scan, as every
+    decode tick (S = 1) needs for ``rglru_step`` to be the JAX step."""
+    a, x, h0 = _scan_inputs(3, s, EDGE_W, seed=4)
+    _, ta = _both(a, dtype)
+    _, tx = _both(x, dtype)
+    th = torch.from_numpy(h0) if with_h0 else None
+    assert rglru_kernel.chunk_plan(s, EDGE_W).chunks == 1
+    got = _chunked(ta, tx, th)
+    want = rglru_ref.rglru_scan_reference(ta, tx, th)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_rglru_chunked_rows_do_not_depend_on_the_batch():
+    """The plan is S's and W's only, so a row's bits are the same in a
+    batch of 3 as alone."""
+    a, x, h0 = (torch.from_numpy(v) for v in _scan_inputs(3, 3 * L + 5, EDGE_W, 5))
+    h, last = _chunked(a, x, h0)
+    for r in range(3):
+        hr, lr = _chunked(a[r:r + 1], x[r:r + 1], h0[r:r + 1])
+        assert torch.equal(h[r:r + 1], hr) and torch.equal(last[r:r + 1], lr)
+
+
+@pytest.mark.parametrize("s", [0, 1, L - 1, L, L + 1, 3 * L + 5, 64, 79, 1000,
+                               1024, 1025, 2100, 3000, 3460, 100_000])
+@pytest.mark.parametrize("w", [1, 40, 200, 2560])
+def test_chunk_plan_covers_every_step_once(s, w):
+    plan = rglru_kernel.chunk_plan(s, w)
+    # chunks of L steps tile [0, S): none empty, none missing
+    assert plan.length >= rglru_kernel.TILE
+    assert plan.length * plan.chunks >= s
+    assert plan.chunks == 1 or plan.length * (plan.chunks - 1) < s
+    assert (plan.chunks == 1) == (s <= rglru_kernel.TILE)
+    # the chunks fit one cluster, and no CTA of it is idle
+    assert plan.chunks <= rglru_kernel.MAX_CHUNKS
+    assert plan.per_cta <= rglru_kernel.MAX_CHUNKS_PER_CTA
+    assert plan.ctas <= rglru_kernel.MAX_CTAS
+    assert plan.per_cta * (plan.ctas - 1) < plan.chunks <= plan.per_cta * plan.ctas
+    assert plan.per_cta * plan.stripe <= 256 and plan.stripe % 32 == 0
+    # stripes tile W
+    assert (plan.stripes - 1) * plan.stripe < w <= plan.stripes * plan.stripe
+
+
+@pytest.mark.parametrize("s", [64, 79, 1000, 2100, 3460])
+def test_chunk_plan_fills_the_card_at_the_models_prefill(s):
+    """recurrentgemma-2b's W = 2560: (stripe, chunk) pairs, a warp each,
+    at least twice the H100's 132 SMs, over more than the 20 CTAs of a
+    channel-parallel grid."""
+    plan = rglru_kernel.chunk_plan(s, 2560)
+    assert plan.stripes * plan.chunks >= 2 * 132
+    assert plan.stripes * plan.ctas > 20
 
 
 # -- the init of Lambda ------------------------------------------------------------
