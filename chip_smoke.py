@@ -13,7 +13,12 @@ per source, all at once) and drives the port's paths on the card:
    the kernel's chunk of trips, and the line entry's sums against the grid
    entry's row sums on every row, the paper's 3,200 lines among them; the
    work function is profiled, after the serving phases, to show its two
-   device launches an item.
+   device launches an item.  Then the same parsed spec runs on the
+   ``cluster`` backend (``job_cluster``): 2 node-loader subprocesses x 4
+   workers, each process with its own CUDA context, every line one launch
+   of the line entry inside a node; in turns with the threads job
+   (threads, cluster, cluster, threads), each run's counts equal to the
+   full grid's.
 2. LM serving, dense: the fused RMS-norm, flash-attention (both variants:
    wgmma for bfloat16, CUDA cores for float32) and RG-LRU scan kernels are
    held against their plain versions (RMS norm also bit-equal on the same
@@ -44,8 +49,10 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import importlib.metadata
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -62,6 +69,7 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.cluster.deploy.local import _child_env  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.core.builder import ClusterBuilder  # noqa: E402
@@ -84,10 +92,15 @@ from repro_torch.kernels.rmsnorm.ref import rms_norm_reference  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import recurrent as rec_mod  # noqa: E402
 from repro_torch.models.common import count_params, init_params  # noqa: E402
+from repro_torch.core.dsl import parse_cgpp  # noqa: E402
 from repro_torch.quickstart import (  # noqa: E402
     LINES,
     MAX_ITERATIONS,
+    SPEC,
     WIDTH,
+    Calculate,
+    backend_options,
+    collector,
     fluent_spec,
     make_calculate,
     mandelbrot_spec,
@@ -191,6 +204,13 @@ def emit(obj: dict) -> None:
     if "phase" in obj:
         obj = {**obj, "elapsed_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
+
+
+def installed_version(dist: str) -> str | None:
+    try:
+        return importlib.metadata.version(dist)
+    except importlib.metadata.PackageNotFoundError:
+        return None
 
 
 def nvidia_smi(query: str) -> str:
@@ -352,6 +372,123 @@ def run_job(spec, launches_expected: int):
     return result, wall_s, builder.timing, len(plan.nodes), launches
 
 
+# What a node-loader's boot and first item cost, in one fresh interpreter
+# with the nodes' environment and no other node booting beside it.
+NODE_BOOT_PROBE = """
+import json, time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+import repro_torch.quickstart as qs
+from repro_torch.kernels.mandelbrot import kernel
+t2 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+qs.Calculate(qs.WIDTH, qs.MAX_ITERATIONS, "cuda")(0)
+t4 = time.perf_counter()
+qs.Calculate(qs.WIDTH, qs.MAX_ITERATIONS, "cuda")(1)
+t5 = time.perf_counter()
+print(json.dumps({"import_torch_ms": (t1 - t0) * 1e3,
+                  "import_quickstart_ms": (t2 - t1) * 1e3,
+                  "cuda_context_ms": (t3 - t2) * 1e3,
+                  "first_item_ms": (t4 - t3) * 1e3,
+                  "second_item_ms": (t5 - t4) * 1e3,
+                  "launches": kernel.LAUNCHES}))
+"""
+
+
+def probe_node_boot() -> None:
+    """Split a node's boot and first item into their parts."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", NODE_BOOT_PROBE],
+                         env=_child_env(), check=True, capture_output=True,
+                         text=True, timeout=120)
+    probe = json.loads(out.stdout.strip().splitlines()[-1])
+    emit({"phase": "node_boot_probe", "process_wall_ms":
+          (time.perf_counter() - t0) * 1e3, **probe})
+    if probe["launches"] != 2:
+        raise SystemExit(f"the probe's two items launched the line kernel "
+                         f"{probe['launches']} times, expected 2")
+
+
+class CountedCalculate(Calculate):
+    """The paper's work function, its result also carrying the line
+    kernel's launch count so far in the process that ran it.  A class of
+    this script: cloudpickle ships it to the node-loaders by value, where
+    the base class and the kernel's module resolve by reference."""
+
+    def __call__(self, line_y: int) -> dict:
+        out = Calculate.__call__(self, line_y)
+        out["pid"] = os.getpid()
+        out["launches"] = mandel_kernel.LAUNCHES
+        return out
+
+
+def counted_collector(acc, item):
+    """The paper's collector, also keeping the highest launch count each
+    node process reported: each item reads the count after its own launch,
+    so the highest is the process's count at its last launch."""
+    seen = acc.setdefault("launches", {})
+    seen[item["pid"]] = max(seen.get(item["pid"], 0), item["launches"])
+    return collector(acc, item)
+
+
+def run_cluster_job(expected: dict, threads_wall_s: list[float]) -> None:
+    """The paper's parsed spec over node-loader subprocesses on the card:
+    the counts, the items per node, the line kernel's launches in each node
+    process, the children's exits and the timing.
+
+    The work function is the paper's, counting: each node process starts
+    with a count of 0 and launches the line kernel only for its items, so
+    its count must equal its items, and the counts must sum to the job's
+    lines."""
+    if installed_version("cloudpickle") is None:
+        raise SystemExit("job_cluster ships its counting work function by "
+                         "value, which needs cloudpickle")
+    calc = make_calculate(WIDTH, MAX_ITERATIONS)  # builds the library here
+    spec = parse_cgpp(
+        SPEC % {"iters": MAX_ITERATIONS, "width": WIDTH, "lines": LINES},
+        namespace={"CALCULATE": CountedCalculate(calc.width, calc.max_iters,
+                                                 calc.device),
+                   "COLLECTOR": counted_collector})
+    builder = ClusterBuilder()
+    app = builder.build_application(spec, backend="cluster",
+                                    **backend_options("cluster"))
+    t0 = time.perf_counter()
+    result = app.run()
+    wall_s = time.perf_counter() - t0
+    by_pid = result.pop("launches")
+    if result != expected:
+        raise SystemExit(f"cluster job counts {result} != full-grid counts "
+                         f"{expected}")
+    nodes = {t.node_id: t.as_dict() for t in builder.timing.nodes
+             if t.node_id != "host"}
+    items = [n["items"] for n in nodes.values()]
+    if len(nodes) != 2 or sum(items) != LINES or min(items) == 0:
+        raise SystemExit(f"items per node {items} must be two shares of "
+                         f"{LINES}, none empty")
+    pids = {nid: app.host_loader.membership.nodes[nid].pid for nid in nodes}
+    launches = {nid: by_pid.get(pid, 0) for nid, pid in pids.items()}
+    if (sorted(by_pid) != sorted(pids.values())
+            or any(launches[nid] != nodes[nid]["items"] for nid in nodes)
+            or sum(launches.values()) != LINES):
+        raise SystemExit(f"line kernel launches per node {launches} (by pid "
+                         f"{by_pid}, node pids {pids}) must equal the items "
+                         f"per node and sum to {LINES}")
+    exits = {nid: h.returncode for nid, h in app.processes.items()}
+    if app.orphaned() or any(code != 0 for code in exits.values()):
+        raise SystemExit(f"node-loaders left running {app.orphaned()} or "
+                         f"exited non-zero {exits}")
+    host = next(t for t in builder.timing.nodes if t.node_id == "host")
+    emit({"phase": "job_cluster", "backend": "cluster", "result": result,
+          "launches": launches,
+          "wall_s": wall_s, "threads_wall_s": threads_wall_s,
+          "host_load_ms": host.load_ms, "host_run_ms": host.run_ms,
+          "nodes": nodes, "exit_codes": exits, "wire": builder.timing.wire,
+          "preload": backend_options("cluster")["preload"]})
+
+
 def main() -> None:
     kind = torch.cuda.get_device_name(0)
     card = nvidia_smi("name,power.limit")
@@ -361,7 +498,10 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     emit({"phase": "card", "nvidia_smi": card, "kind": kind,
           "max_sm_clock_mhz": max_clock_hz / 1e6,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          # the process transport's optional codecs: without them the
+          # work function ships by plain pickle and payloads by pickle
+          **{name: installed_version(name) for name in ("cloudpickle", "msgpack")}})
 
     def timed_load(module):
         t = time.perf_counter()
@@ -459,6 +599,22 @@ def main() -> None:
     emit({"phase": "main_path", "backend": "threads", "nodes": nodes,
           "result": result, "launches": launches, "wall_s": wall_s,
           "run_ms": timing.total_run_ms(), "timing": timing.summary()})
+
+    # The same job over node-loader processes, in turns with the threads
+    # job above: threads, cluster, cluster, threads.  The nodes' launches
+    # are made in their own processes: each node's count comes back with
+    # its results (``run_cluster_job``).
+    threads_wall_s = [wall_s]
+    for _ in range(2):
+        run_cluster_job(expected, threads_wall_s)
+    reset_launches()
+    again, wall_s, _t, _n, _l = run_job(mandelbrot_spec(), LINES)
+    if again != expected:
+        raise SystemExit(f"threads job counts {again} != {expected}")
+    threads_wall_s.append(wall_s)
+    emit({"phase": "job_threads_again", "wall_s": wall_s,
+          "threads_wall_s": threads_wall_s})
+    probe_node_boot()
 
     # The work function alone, serially in this thread: the job's work
     # without the threads runtime.

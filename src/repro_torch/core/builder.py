@@ -14,12 +14,14 @@ with no user intervention:
   whose protocol is the one model-checked by ``core.verify``.
 
 This is the application half of the JAX package's builder.  Its SPMD half
-(``build_step``) and the process-transport backends are not ported yet.
+(``build_step``) and the ``"service"`` backend are not ported yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Any, Sequence
+
 from repro_torch.core.timing import TimingCollector
 
 
@@ -128,14 +130,38 @@ class ClusterBuilder:
     def __init__(self, timing: TimingCollector | None = None):
         self.timing = timing or TimingCollector()
 
-    def deployment_plan(self, spec) -> DeploymentPlan:
+    def deployment_plan(
+        self,
+        spec,
+        *,
+        hosts: Sequence[str] | None = None,
+        bind_host: str | None = None,
+        launcher: Any = None,
+    ) -> DeploymentPlan:
         """Derive the per-stage deployment plan for a spec.
 
-        The threads backend deploys nowhere, so node addresses are the
-        documentation placeholders of the paper's §4 walkthrough.
+        Node addresses come from the deployment layer when it is known:
+        ``hosts=`` (the ssh fan-out shorthand) or a launcher exposing
+        ``.hosts`` assigns machines round-robin exactly as the launcher
+        will; otherwise ``bind_host`` (every local node-loader dials it).
+        With no deployment information at all — a plan derived from the
+        spec alone, as the threads backend's — documentation-placeholder
+        addresses are used, as the paper's §4 walkthrough does.
         """
         pipe = spec.as_pipeline() if hasattr(spec, "as_pipeline") else spec
         pipe.validate()
+        machines = list(hosts) if hosts else list(
+            getattr(launcher, "hosts", None) or []
+        )
+
+        def addr_host(i: int) -> str:
+            if machines:
+                return machines[i % len(machines)]
+            if bind_host:
+                # Local node-loaders dial the host's bind address; an
+                # unroutable wildcard bind resolves to loopback for them.
+                return "127.0.0.1" if bind_host == "0.0.0.0" else bind_host
+            return f"192.168.1.{100 + i}"  # placeholder: deployment unknown
 
         nodes: list[NodePlan] = []
         stage_plans: list[StagePlan] = []
@@ -145,7 +171,7 @@ class ClusterBuilder:
             for _ in range(st.nclusters):
                 np_ = NodePlan(
                     node_id=f"node{i}",
-                    address=f"192.168.1.{100 + i}:{LOAD_PORT}/{LOAD_CHANNEL}",
+                    address=f"{addr_host(i)}:{LOAD_PORT}/{LOAD_CHANNEL}",
                     workers=st.workers_per_node,
                     stage=st.name if len(pipe.stages) > 1 else "",
                 )
@@ -172,8 +198,27 @@ class ClusterBuilder:
         backend's zero-copy delivery semantics so in-place mutation bugs
         surface on one host.
 
-        ``"cluster"`` and ``"service"`` (the multi-process transport) are not
-        ported yet and raise :class:`NotImplementedError`.
+        ``"cluster"`` runs real OS processes connected by TCP sockets via
+        the Host-Node-Loader / Node-Loader bootstrap of §4 / Figure 1
+        (``repro_torch.cluster``).  ``backend_options`` are forwarded to
+        :class:`repro_torch.cluster.spawn.ProcessClusterApplication` (e.g.
+        ``port=0``, ``preload=("repro_torch.quickstart",)``,
+        ``slowdown={node_id: seconds_per_item}``).  ``launcher=`` takes any
+        :class:`~repro_torch.cluster.deploy.base.Launcher` (LocalLauncher
+        subprocesses by default, InProcessLauncher threads for tests).  The
+        registration barrier is policy-driven: ``min_nodes=`` admits a
+        degraded start with survivors, ``max_respawns=`` relaunches a node
+        that never registers, late joiners are shipped LOAD + credits
+        mid-run (``allow_late_join``).  Work functions cross to the nodes
+        pickled (by value through cloudpickle where it is installed, else by
+        reference), and ndarray payloads arrive as *read-only* views.
+        ``http_port=`` turns on the live status endpoint
+        (``repro_torch.cluster.telemetry``).  ``hosts=`` (ssh fan-out) and
+        ``chaos=`` (fault injection) are not ported yet and raise
+        :class:`NotImplementedError`.
+
+        ``"service"`` (the persistent warm node pool) is not ported yet and
+        raises :class:`NotImplementedError`.
         """
         pipe = spec.as_pipeline() if hasattr(spec, "as_pipeline") else spec
         pipe.validate()
@@ -190,10 +235,26 @@ class ClusterBuilder:
                 spec=pipe, plan=self.deployment_plan(pipe),
                 timing=self.timing, readonly_delivery=readonly,
             )
-        if backend in ("cluster", "service"):
+        if backend == "cluster":
+            from repro_torch.cluster.spawn import ProcessClusterApplication
+
+            # The plan reflects the actual deployment layer: hosts=/launcher
+            # machine assignments, or the bind address local loaders dial.
+            plan = self.deployment_plan(
+                pipe,
+                hosts=backend_options.get("hosts"),
+                bind_host=backend_options.get("bind_host", "127.0.0.1"),
+                launcher=backend_options.get("launcher"),
+            )
+            return ProcessClusterApplication(
+                spec=pipe, plan=plan, timing=self.timing, **backend_options
+            )
+        if backend == "service":
             raise NotImplementedError(
-                f"backend {backend!r} needs the process transport, which is "
-                "not ported yet (ROADMAP.md, queue 1: \"Process transport\")"
+                "backend 'service' needs the warm node pool "
+                "(cluster/service.py), which is not ported yet (ROADMAP.md, "
+                "queue 1 item 6b: \"Process transport: service, gateway, "
+                "chaos, ssh\")"
             )
         raise ValueError(
             f"unknown backend {backend!r}; expected 'threads', 'cluster', "

@@ -190,6 +190,16 @@ class Stage:
     fn: Callable[[Any], Any]
     nclusters: int = 1
     workers_per_node: int = 1
+    # Per-stage data-plane overrides; None inherits the cluster-wide values
+    # given to the runtime (HostLoader prefetch / flush_interval).
+    prefetch: int | None = None
+    flush_ms: float | None = None
+    # How this stage receives its input hop: None/"host" relays through the
+    # host, "peer" ships node-to-node (key_fn turns the hop into a keyed
+    # shuffle).  Only meaningful on the cluster/service backends; the
+    # threads backend ignores routing (it has no wire).
+    route: str | None = None
+    key_fn: Callable[[Any], Any] | None = None
 
     def to_network(self) -> StageNetwork:
         w = self.workers_per_node
@@ -201,6 +211,10 @@ class Stage:
                 group=AnyGroupAny(workers=w, function=self.fn),
                 afoc=AnyFanOne(sources=w),
             ),
+            prefetch=self.prefetch,
+            flush_ms=self.flush_ms,
+            route=self.route,
+            key_fn=self.key_fn,
         )
 
 
@@ -249,8 +263,65 @@ class PipelineSpec:
                 i += 1
         return out
 
+    def stage_of(self, node_id: str) -> int:
+        """Stage index a node id belongs to.
+
+        Respawn replacements (``node3r1``) map to their base id; unknown
+        ids (elastic late joiners) default to stage 0.
+        """
+        mapping = dict(self.node_assignments())
+        if node_id in mapping:
+            return mapping[node_id]
+        base = node_id.split("r", 1)[0]
+        return mapping.get(base, 0)
+
+    # -- one-stage compatibility views ---------------------------------------
+
+    def _single(self) -> StageNetwork:
+        if len(self.stages) != 1:
+            raise ValueError(
+                f"pipeline has {len(self.stages)} stages; the one-stage "
+                "accessors (nclusters/workers_per_node/node_net) do not "
+                "apply — iterate .stages"
+            )
+        return self.stages[0]
+
+    @property
+    def nclusters(self) -> int:
+        return self._single().nclusters
+
+    @property
+    def workers_per_node(self) -> int:
+        return self._single().workers_per_node
+
+    @property
+    def node_net(self) -> NodeNetwork:
+        return self._single().node_net
+
+    @property
+    def host_net(self) -> HostNetwork:
+        """The host-side record group (first stage's server feeds it, last
+        stage's merge drains into the collector)."""
+        return HostNetwork(
+            emit=self.emit,
+            onrl=self.stages[0].onrl,
+            afo=self.stages[-1].afo,
+            collector=self.collector,
+        )
+
     def as_pipeline(self) -> "PipelineSpec":
         return self
+
+    def as_cluster_spec(self) -> ClusterSpec:
+        """Collapse a one-stage pipeline back to the paper's ClusterSpec."""
+        st = self._single()
+        return ClusterSpec(
+            host=self.host,
+            nclusters=st.nclusters,
+            host_net=self.host_net,
+            node_net=st.node_net,
+            constants=dict(self.constants),
+        )
 
     # -- validation ----------------------------------------------------------
 
@@ -279,6 +350,43 @@ class PipelineSpec:
                 raise TypeError(
                     f"stage {st.name!r}: group function must be callable"
                 )
+        for s, st in enumerate(self.stages):
+            route = getattr(st, "route", None)
+            if route not in (None, "host", "peer"):
+                raise ValueError(
+                    f"stage {st.name!r}: route must be None, 'host' or "
+                    f"'peer', got {route!r}"
+                )
+            key_fn = getattr(st, "key_fn", None)
+            if key_fn is not None and route != "peer":
+                raise ValueError(
+                    f"stage {st.name!r}: key_fn only applies to "
+                    "route='peer' hops"
+                )
+            if key_fn is not None and not callable(key_fn):
+                raise TypeError(
+                    f"stage {st.name!r}: key_fn must be callable"
+                )
+            if route == "peer" and s == 0:
+                raise ValueError(
+                    f"stage {st.name!r}: the first stage cannot use "
+                    "route='peer' — its input comes from the host-side "
+                    "emit, which has no peer edge"
+                )
+
+    def peer_routed_hops(self) -> dict[int, dict]:
+        """Source stage -> hop descriptor for every ``route='peer'`` hop.
+
+        Keyed by the *sending* stage ``s`` (the hop ``s -> s+1``); the
+        ``route`` knob itself sits on the receiving stage.  The runtime
+        builds routing tables from this, ``verify_spec`` the peer-channel
+        model.
+        """
+        hops: dict[int, dict] = {}
+        for s1, st in enumerate(self.stages):
+            if getattr(st, "route", None) == "peer":
+                hops[s1 - 1] = {"key_fn": getattr(st, "key_fn", None)}
+        return hops
 
     # -- convenience constructor ---------------------------------------------
 
@@ -341,6 +449,10 @@ class Pipeline:
         nodes: int = 1,
         workers: int = 1,
         name: str | None = None,
+        prefetch: int | None = None,
+        flush_ms: float | None = None,
+        route: str | None = None,
+        key_fn: Callable[[Any], Any] | None = None,
     ) -> "Pipeline":
         if self._collect is not None:
             raise ValueError("stage() must precede collect()")
@@ -349,8 +461,28 @@ class Pipeline:
         name = name or f"stage{len(self._stages)}"
         if any(s.name == name for s in self._stages):
             raise ValueError(f"duplicate stage name {name!r}")
+        if prefetch is not None and prefetch < 0:
+            raise ValueError(f"stage {name!r}: prefetch must be >= 0")
+        if flush_ms is not None and flush_ms < 0:
+            raise ValueError(f"stage {name!r}: flush_ms must be >= 0")
+        if route not in (None, "host", "peer"):
+            raise ValueError(
+                f"stage {name!r}: route must be None, 'host' or 'peer', "
+                f"got {route!r}"
+            )
+        if key_fn is not None and route != "peer":
+            raise ValueError(
+                f"stage {name!r}: key_fn only applies to route='peer' hops"
+            )
+        if route == "peer" and not self._stages:
+            raise ValueError(
+                f"stage {name!r}: the first stage cannot use route='peer' — "
+                "its input comes from the host-side emit"
+            )
         self._stages.append(
-            Stage(name=name, fn=fn, nclusters=nodes, workers_per_node=workers)
+            Stage(name=name, fn=fn, nclusters=nodes, workers_per_node=workers,
+                  prefetch=prefetch, flush_ms=flush_ms, route=route,
+                  key_fn=key_fn)
         )
         return self
 
@@ -679,3 +811,10 @@ def _build_pipeline_from_sections(
     )
     spec.validate()
     return spec
+
+
+def load_cgpp(
+    path: str, namespace: Mapping[str, Any] | None = None
+) -> ClusterSpec | PipelineSpec:
+    with open(path, "r", encoding="utf-8") as fh:
+        return parse_cgpp(fh.read(), namespace)

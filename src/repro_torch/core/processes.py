@@ -177,6 +177,18 @@ class StageNetwork:
     node_net: NodeNetwork
     onrl: OneNodeRequestedList = field(default_factory=OneNodeRequestedList)
     afo: AnyFanOne | None = None
+    # Per-stage data-plane knobs (None = inherit the cluster-wide values):
+    # extra items beyond ``workers`` a node of this stage keeps buffered,
+    # and the node-side result-flush interval in milliseconds.
+    prefetch: int | None = None
+    flush_ms: float | None = None
+    # How this stage *receives* its input hop: None/"host" relays results
+    # through the host (the paper's topology); "peer" ships them node-to-
+    # node with the host keeping only the control plane.  ``key_fn``
+    # (peer-only) turns the hop into a keyed shuffle: items land on the
+    # target chosen by a stable hash of ``key_fn(value)``.
+    route: str | None = None
+    key_fn: Callable[[Any], Any] | None = None
 
     def __post_init__(self) -> None:
         if self.nclusters < 1:

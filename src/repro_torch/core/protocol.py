@@ -115,11 +115,17 @@ class ServerProc(Process):
     """
 
     def __init__(self, nclusters: int, stage: int = 0,
-                 literal_paper_model: bool = False):
+                 literal_paper_model: bool = False,
+                 peer_input: bool = False):
         self.name = f"server{stage}"
         self.n = nclusters
         self.s = stage
         self.literal = literal_paper_model
+        # A peer-routed hop renames the input stream ("a", s) -> ("p", s):
+        # the *location* of the channel moved off the host, its protocol
+        # (a well-behaved emit stream ending in one UT) did not — which is
+        # exactly why the Listing-3 assertions transfer unchanged.
+        self.in_chan: Hashable = ("p", stage) if peer_input else ("a", stage)
 
     def initial(self) -> State:
         return ("idle",)
@@ -130,7 +136,7 @@ class ServerProc(Process):
             def accept(o: Any) -> State:
                 return ("end", 0) if o == UT else ("have", o)
 
-            return [Input(("a", self.s), accept)]
+            return [Input(self.in_chan, accept)]
         if state[0] == "have":
             # Server_Choice(o) = [] x : {0..N-1} @ Service(x, o); Service
             # begins b?i.S.
@@ -239,11 +245,16 @@ class ReducerProc(Process):
     """
 
     def __init__(self, nclusters: int, workers: int, stage: int = 0,
-                 last: bool = True):
+                 last: bool = True, peer_output: bool = False):
         self.name = f"reducer{stage}"
         self.n = nclusters
         self.s = stage
-        self.out_chan: Hashable = ("f",) if last else ("a", stage + 1)
+        if last:
+            self.out_chan: Hashable = ("f",)
+        elif peer_output:
+            self.out_chan = ("p", stage + 1)
+        else:
+            self.out_chan = ("a", stage + 1)
         self.remaining = nclusters * workers
 
     def initial(self) -> State:
@@ -298,6 +309,47 @@ class CollectProc(Process):
 # ---------------------------------------------------------------------------
 
 
+def normalize_routes(routes: "dict | Iterable[int] | None",
+                     nstages: int) -> frozenset:
+    """Validate peer-route declarations; return the set of source stages.
+
+    Accepts a set/list of source stage indices (each meaning "the hop
+    ``s -> s+1`` is peer-routed") or a ``{src: dst}`` dict — the explicit
+    form exists so an ill-formed topology can be *stated* and rejected:
+    a route whose destination is not downstream of its source would let
+    items re-enter a stage they already left, so the per-stage UT
+    accounting (each reducer counts exactly ``N*W`` terminators) could
+    wait forever on a cycle the emit stream never closes.  That is
+    refused here, before any state-space work.
+    """
+    if not routes:
+        return frozenset()
+    if isinstance(routes, dict):
+        pairs = [(int(s), int(d)) for s, d in routes.items()]
+    else:
+        pairs = [(int(s), int(s) + 1) for s in routes]
+    srcs = set()
+    for src, dst in pairs:
+        if not 0 <= src < nstages - 1:
+            raise ValueError(
+                f"peer route source stage {src} out of range for "
+                f"{nstages} stages (a route leaves stages 0..{nstages - 2})"
+            )
+        if dst <= src:
+            raise ValueError(
+                f"cyclic peer route: stage {src} -> stage {dst} sends data "
+                "backwards (or to itself), so stage UT accounting would "
+                "deadlock — peer routes must target the next stage"
+            )
+        if dst != src + 1:
+            raise ValueError(
+                f"unsupported peer route: stage {src} -> stage {dst} skips "
+                f"stage {src + 1}; peer routes cover the adjacent hop only"
+            )
+        srcs.add(src)
+    return frozenset(srcs)
+
+
 @dataclass
 class ProtocolNetwork:
     """The composed System of Listing 3 lines 50-51."""
@@ -306,29 +358,52 @@ class ProtocolNetwork:
     visible_channels: frozenset = frozenset({("finished",)})
 
     @staticmethod
+    def build(
+        nclusters: int,
+        workers_per_node: int = 1,
+        num_objects: int = 5,
+        literal_paper_model: bool = False,
+    ) -> "ProtocolNetwork":
+        return ProtocolNetwork.build_pipeline(
+            [(nclusters, workers_per_node)],
+            num_objects,
+            literal_paper_model=literal_paper_model,
+        )
+
+    @staticmethod
     def build_pipeline(
         stage_shapes: list[tuple[int, int]],
         num_objects: int = 5,
         literal_paper_model: bool = False,
+        routes: "dict | Iterable[int] | None" = None,
     ) -> "ProtocolNetwork":
         """The chained System: one (server, clients, workers, reducer) group
         per ``(nclusters, workers_per_node)`` stage shape, reducer *s* wired
         to server *s+1*; a single-entry list is Listing 3 verbatim.
+
+        ``routes`` marks peer-routed hops (see :func:`normalize_routes`):
+        for each source stage ``s`` in it the hop channel ``("a", s+1)``
+        is renamed ``("p", s+1)`` — the stream's endpoints moved from the
+        host to the nodes, its protocol did not, so the composition is
+        re-verified over the renamed channels with zero new process kinds.
         """
         if not stage_shapes:
             raise ValueError("pipeline needs at least one stage shape")
+        peer_srcs = normalize_routes(routes, len(stage_shapes))
         procs: list[Process] = [EmitProc(num_objects)]
         last = len(stage_shapes) - 1
         for s, (n, w) in enumerate(stage_shapes):
             procs.append(
-                ServerProc(n, stage=s, literal_paper_model=literal_paper_model)
+                ServerProc(n, stage=s, literal_paper_model=literal_paper_model,
+                           peer_input=(s - 1) in peer_srcs)
             )
             for i in range(n):
                 procs.append(ClientProc(i, w, stage=s))
             for i in range(n):
                 for wi in range(w):
                     procs.append(WorkerProc(i, wi, stage=s))
-            procs.append(ReducerProc(n, w, stage=s, last=(s == last)))
+            procs.append(ReducerProc(n, w, stage=s, last=(s == last),
+                                     peer_output=s in peer_srcs))
         procs.append(CollectProc())
         return ProtocolNetwork(processes=procs)
 

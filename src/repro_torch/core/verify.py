@@ -151,6 +151,7 @@ def verify_pipeline(
     num_objects: int = 4,
     literal_paper_model: bool = False,
     max_states: int = 2_000_000,
+    routes: "dict | list | set | None" = None,
 ) -> VerificationReport:
     """Exhaustively check the chained (multi-stage) network.
 
@@ -159,11 +160,18 @@ def verify_pipeline(
     stage s+1's server — and re-runs all of Listing 3's assertions on it,
     so the composition argument is machine-checked rather than assumed.
     A one-entry list is exactly ``verify_network``.
+
+    ``routes`` marks peer-routed hops (source stage indices, or a
+    ``{src: dst}`` dict); the model renames those hop channels to peer
+    channels and all assertions re-run over the decentralised wiring.  An
+    ill-formed declaration (cyclic / backwards route) raises ValueError
+    before any state is explored.
     """
     net = ProtocolNetwork.build_pipeline(
         stage_shapes,
         num_objects,
         literal_paper_model=literal_paper_model,
+        routes=routes,
     )
     init = net.initial()
 
@@ -380,6 +388,11 @@ def verify_spec(spec, num_objects: int = 4, **kw) -> VerificationReport:
     # ...then the chained composition.  The LTS is a product over stages, so
     # the chain is clamped: first three hops, W=1 (the paper's own
     # finitisation), M<=3 — worker generality and the remaining hops were
-    # already covered individually above.
+    # already covered individually above.  Peer-routed hops declared on the
+    # spec (``route="peer"`` on the receiving stage) carry into the model,
+    # so the decentralised wiring is what gets verified.
     shapes = [(min(st.nclusters, 2), 1) for st in pipe.stages[:3]]
-    return verify_pipeline(shapes, min(num_objects, 3), **kw)
+    routes = kw.pop("routes", None)
+    if routes is None and hasattr(pipe, "peer_routed_hops"):
+        routes = [s for s in pipe.peer_routed_hops() if s < len(shapes) - 1]
+    return verify_pipeline(shapes, min(num_objects, 3), routes=routes, **kw)

@@ -3,16 +3,20 @@
 Part 1 builds the Mandelbrot application from a textual ``.cgpp``
 specification (Listing 2 of the paper), verifies the deployment formally
 (section 7), prints the generated deployment plan (section 4 / figure 1),
-runs it on the threads backend and reports the paper's counts + per-node
+runs it on the chosen backend and reports the paper's counts + per-node
 timing (requirement 7).  Every work item renders and sums one line in one
-launch of the CUDA escape-time kernel.
+launch of the CUDA escape-time kernel: in a worker thread of this process
+on the ``threads`` backend, in a worker of a node-loader subprocess on the
+``cluster`` backend (paper section 4: the host ships the work function over
+TCP and every node opens its own CUDA context).
 
 Part 2 builds the same workload as a *two-stage pipeline* with the fluent
 Python API — Mandelbrot lines rendered by stage 1, reduced per line by
-stage 2 — the generalised spec layer with the paper's network as its
-one-stage special case.
+stage 2 — and runs it on the same backend: the generalised spec layer with
+the paper's network as its one-stage special case.
 
 Run:  PYTHONPATH=src python -m repro_torch.quickstart
+      PYTHONPATH=src python -m repro_torch.quickstart cluster  # subprocesses
       PYTHONPATH=src python -m repro_torch.quickstart --device cpu \\
           --width 300 --lines 32 --iters 100      # plain PyTorch, no card
 
@@ -23,19 +27,22 @@ value 1,000, on 2 clusters of 4 cores.
 from __future__ import annotations
 
 import argparse
-
-import torch
+from dataclasses import dataclass
 
 from repro_torch.core.builder import ClusterBuilder
 from repro_torch.core.dsl import ClusterSpec, Pipeline, PipelineSpec, parse_cgpp
 from repro_torch.core.processes import EmitDetails, ResultDetails
 from repro_torch.core.verify import verify_spec
 from repro_torch.device import resolve_device
+from repro_torch.kernels.mandelbrot import kernel as mandelbrot_kernel
 from repro_torch.kernels.mandelbrot.ops import mandelbrot_line_stats
 
 WIDTH = 5600
 LINES = 3200
 MAX_ITERATIONS = 1000
+# What a node-loader imports while it registers, so the import of torch and
+# of the work function's module lands in its boot time, not its load time.
+NODE_PRELOAD = ("repro_torch.quickstart",)
 
 SPEC = """
 # Mandelbrot DSL specification (paper Listing 2), python-flavoured .cgpp
@@ -71,15 +78,39 @@ collector = Collect(r_details=result_details)
 """
 
 
-def make_calculate(width: int, max_iters: int, device: torch.device):
-    """The user's sequential data method (paper Mdata.calculateColour)."""
+@dataclass(frozen=True)
+class Calculate:
+    """The user's sequential data method (paper Mdata.calculateColour).
 
-    def calculate(line_y: int):
+    A module-level class, so that plain ``pickle`` ships it to a node-loader
+    by reference (the node imports it from ``repro_torch.quickstart``) and
+    the job runs the same whether cloudpickle is installed or not.  The
+    device travels by name and is resolved where the work runs; the result
+    is plain ints, never a tensor.
+    """
+
+    width: int
+    max_iters: int
+    device: str
+
+    def __call__(self, line_y: int) -> dict:
         white, total_iters = mandelbrot_line_stats(
-            width, line_y, max_iters, device=device).tolist()
-        return {"points": width, "white": white, "total_iters": total_iters}
+            self.width, line_y, self.max_iters, device=self.device).tolist()
+        return {"points": self.width, "white": white,
+                "total_iters": total_iters}
 
-    return calculate
+
+def make_calculate(width: int, max_iters: int, device=None) -> Calculate:
+    """The work function on ``device`` (default: the card).
+
+    On a CUDA device the line kernel's library is built here, in the host
+    process, before any node-loader starts: the nodes then load it by the
+    hash of its source instead of each running ``nvcc``.
+    """
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        mandelbrot_kernel.load()
+    return Calculate(width, max_iters, str(dev))
 
 
 def collector(acc, item):
@@ -99,7 +130,7 @@ def mandelbrot_spec(width: int = WIDTH, lines: int = LINES,
                     max_iters: int = MAX_ITERATIONS, *,
                     device=None) -> ClusterSpec:
     """The paper's job as a parsed ``.cgpp`` spec; work runs on ``device``."""
-    calculate = make_calculate(width, max_iters, resolve_device(device))
+    calculate = make_calculate(width, max_iters, device)
     return parse_cgpp(
         SPEC % {"iters": max_iters, "width": width, "lines": lines},
         namespace={"CALCULATE": calculate, "COLLECTOR": collector},
@@ -125,7 +156,7 @@ def fluent_spec(width: int = WIDTH, lines: int = LINES // 4,
         acc["total_iters"] += iters
         return acc
 
-    calculate = make_calculate(width, max_iters, resolve_device(device))
+    calculate = make_calculate(width, max_iters, device)
     return (Pipeline(host="192.168.1.176")
             .emit(emit)
             .stage(calculate, nodes=2, workers=2, name="render")
@@ -144,9 +175,18 @@ def _counts(result) -> str:
             f"{result['total_iters']}")
 
 
+def backend_options(backend: str) -> dict:
+    """What ``build_application`` is given for ``backend`` beside the spec."""
+    return {"preload": NODE_PRELOAD} if backend == "cluster" else {}
+
+
 def main(argv=None) -> tuple[dict, dict]:
     """Run both parts; returns the two results."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("backend", nargs="?", default="threads",
+                    choices=("threads", "cluster"),
+                    help="threads in this process, or node-loader "
+                         "subprocesses over TCP")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the plain "
                          "PyTorch version)")
@@ -166,7 +206,8 @@ def main(argv=None) -> tuple[dict, dict]:
 
     builder = ClusterBuilder()
     print(builder.deployment_plan(spec).describe(), "\n")
-    result = builder.build_application(spec, backend="threads").run()
+    result = builder.build_application(
+        spec, backend=args.backend, **backend_options(args.backend)).run()
     print(_counts(result))
     print()
     print(builder.timing.report())
@@ -182,7 +223,8 @@ def main(argv=None) -> tuple[dict, dict]:
     print(report.summary(), "\n")
     if not report.ok:
         raise RuntimeError("the chained network must verify like the single hop")
-    fluent = ClusterBuilder().build_application(pipe, backend="threads").run()
+    fluent = ClusterBuilder().build_application(
+        pipe, backend=args.backend, **backend_options(args.backend)).run()
     print(_counts(fluent))
     if fluent["points"] != lines * args.width:
         raise RuntimeError(f"fluent pipeline lost points: {fluent['points']}")
@@ -190,4 +232,9 @@ def main(argv=None) -> tuple[dict, dict]:
 
 
 if __name__ == "__main__":
-    main()
+    # Run the module under its package name, so that the work function
+    # pickles as ``repro_torch.quickstart.Calculate``, which a node-loader
+    # can import, and not as ``__main__.Calculate``, which it cannot.
+    from repro_torch.quickstart import main as _main
+
+    _main()

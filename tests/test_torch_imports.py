@@ -54,7 +54,22 @@ def test_every_port_module_imports_without_jax_triton_or_repro():
                  "repro_torch.models.convert", "repro_torch.models.layers",
                  "repro_torch.models.attention", "repro_torch.models.lm",
                  "repro_torch.runtime.steps", "repro_torch.runtime.serving",
-                 "repro_torch.launch.serve", "repro_torch.serve_pipeline"):
+                 "repro_torch.launch.serve", "repro_torch.serve_pipeline",
+                 "repro_torch.runtime.failures", "repro_torch.core.timing",
+                 "repro_torch.core.processes", "repro_torch.core.dsl",
+                 "repro_torch.core.protocol", "repro_torch.core.verify",
+                 "repro_torch.cluster", "repro_torch.cluster.wire",
+                 "repro_torch.cluster.netchannels",
+                 "repro_torch.cluster.membership",
+                 "repro_torch.cluster.telemetry",
+                 "repro_torch.cluster.telemetry.registry",
+                 "repro_torch.cluster.telemetry.http",
+                 "repro_torch.cluster.telemetry.dashboard",
+                 "repro_torch.cluster.deploy", "repro_torch.cluster.deploy.base",
+                 "repro_torch.cluster.deploy.local",
+                 "repro_torch.cluster.deploy.inprocess",
+                 "repro_torch.cluster.peer", "repro_torch.cluster.node_loader",
+                 "repro_torch.cluster.host_loader", "repro_torch.cluster.spawn"):
         assert name in seen["modules"]
 
 
