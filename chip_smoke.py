@@ -18,7 +18,12 @@ per source, all at once) and drives the port's paths on the card:
    workers, each process with its own CUDA context, every line one launch
    of the line entry inside a node; in turns with the threads job
    (threads, cluster, cluster, threads), each run's counts equal to the
-   full grid's.
+   full grid's.  Then the same spec as jobs of a warm pool
+   (``job_service``): 2 node-loader subprocesses x 4 workers booted once,
+   the spec submitted three times back to back (the second and third ship
+   no code and pay no boot), twice at once, and once more with a node
+   killed mid-job and healed by a relaunch; every job's counts equal to the
+   full grid's, every node's line-kernel launches equal to its items.
 2. LM serving, dense: the fused RMS-norm, flash-attention (both variants:
    wgmma for bfloat16, CUDA cores for float32) and RG-LRU scan kernels are
    held against their plain versions (RMS norm also bit-equal on the same
@@ -69,7 +74,8 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.cluster.deploy.local import _child_env  # noqa: E402
+from repro_torch.cluster.deploy.local import LocalLauncher, _child_env  # noqa: E402
+from repro_torch.cluster.service import ClusterService  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.core.builder import ClusterBuilder  # noqa: E402
@@ -489,6 +495,165 @@ def run_cluster_job(expected: dict, threads_wall_s: list[float]) -> None:
           "preload": backend_options("cluster")["preload"]})
 
 
+# The warm pool's geometry is the paper's (2 nodes x 4 workers); its
+# liveness is the cluster backend's default (a death shows after 5 s of
+# silence); one heal; a node is killed once the heal job collected this many
+# items.
+POOL_HEALS = 1
+KILL_AFTER_ITEMS = 100
+
+
+def pool_job_launches(svc, handles, expected: dict, seen: dict[int, int],
+                      label: str, skip: tuple[str, ...] = ()) -> dict:
+    """The results of jobs that ran together on the pool: each job's counts
+    must equal the full grid's and its items sum to the lines; each node's
+    line-kernel launches over these jobs (its process's count now less the
+    count before them, ``seen``) must equal its items in them.  ``skip``
+    names a node whose process died mid-job: its last launches never
+    reported back."""
+    items: dict[str, int] = {}
+    top: dict[int, int] = {}
+    for h in handles:
+        result = dict(h.result(timeout=600))
+        for pid, count in result.pop("launches").items():
+            top[pid] = max(top.get(pid, 0), count)
+        if result != expected:
+            raise SystemExit(f"{label}: pool job counts {result} != full-grid "
+                             f"counts {expected}")
+        stats = h.stats()
+        per_node = {nid: d.get("items", 0) for nid, d in stats["nodes"].items()}
+        if stats["items_collected"] != LINES or sum(per_node.values()) != LINES:
+            raise SystemExit(f"{label}: {stats['items_collected']} items "
+                             f"collected, per node {per_node}: every line once")
+        for nid, n in per_node.items():
+            items[nid] = items.get(nid, 0) + n
+    pids = {nid: rec.pid for nid, rec in svc.host_loader.membership.nodes.items()
+            if rec.pid}
+    launches = {nid: top.get(pid, seen.get(pid, 0)) - seen.get(pid, 0)
+                for nid, pid in pids.items() if nid not in skip}
+    seen.update(top)
+    bad = {nid: (launches[nid], items.get(nid, 0)) for nid in launches
+           if launches[nid] != items.get(nid, 0)}
+    if bad:
+        raise SystemExit(f"{label}: line kernel launches != items per node "
+                         f"(launches, items): {bad}")
+    return {"items": items, "launches": launches}
+
+
+def node_boot_ms(svc) -> dict[str, float]:
+    """Each pool node's boot time as its heartbeats report it (0 until its
+    preload is done)."""
+    return {nid: (node.get("report") or {}).get("boot_ms", 0.0)
+            for nid, node in svc.metrics_snapshot()["nodes"].items()}
+
+
+def run_service_jobs(expected: dict, threads_wall_s: list[float]) -> None:
+    """The paper's parsed spec as jobs of a warm pool of node-loader
+    subprocesses on the card: boot once, three submissions of one spec
+    object back to back, two at once, and one with a node killed mid-job
+    that the pool heals by a relaunch.  Every check exits the run."""
+    calc = make_calculate(WIDTH, MAX_ITERATIONS)  # builds the library here
+    spec = parse_cgpp(
+        SPEC % {"iters": MAX_ITERATIONS, "width": WIDTH, "lines": LINES},
+        namespace={"CALCULATE": CountedCalculate(calc.width, calc.max_iters,
+                                                 calc.device),
+                   "COLLECTOR": counted_collector})
+    threads_s = statistics.mean(threads_wall_s)
+    svc = ClusterService(
+        nodes=spec.nclusters, workers=spec.workers_per_node,
+        launcher=LocalLauncher(**backend_options("service")),
+        max_heals=POOL_HEALS)
+    seen: dict[int, int] = {}  # node pid -> its line-kernel launches so far
+    out: dict = {"preload": backend_options("service")["preload"],
+                 "threads_wall_s": threads_wall_s}
+    try:
+        t0 = time.perf_counter()
+        svc.start()
+        out["pool_start_wall_s"] = time.perf_counter() - t0
+        out["pool_boot_ms"] = svc.boot_ms
+
+        submissions = []
+        for k in range(3):
+            t0 = time.perf_counter()
+            h = svc.submit(spec, timeout=600)
+            h.result(timeout=600)
+            wall_s = time.perf_counter() - t0
+            stats = h.stats()
+            row = {"wall_s": wall_s, "ratio_to_threads": wall_s / threads_s,
+                   "submit_to_first_result_ms": h.submit_to_first_result_ms,
+                   "cluster_boot_ms": h.cluster_boot_ms,
+                   "code_shipped": stats["code_shipped"],
+                   "code_cached": stats["code_cached"],
+                   **pool_job_launches(svc, [h], expected, seen,
+                                       f"submission {k + 1}")}
+            if k and (row["cluster_boot_ms"] != 0 or row["code_shipped"] != 0):
+                raise SystemExit(f"warm submission {k + 1} paid boot "
+                                 f"{row['cluster_boot_ms']} ms or shipped "
+                                 f"{row['code_shipped']} stage functions")
+            submissions.append(row)
+        out["submissions"] = submissions
+        # start() returns at the registration barrier, before the nodes'
+        # preload ends; their heartbeats carry each one's boot once it has.
+        out["node_boot_ms"] = node_boot_ms(svc)
+
+        t0 = time.perf_counter()
+        both = [svc.submit(spec, timeout=600) for _ in range(2)]
+        out["concurrent"] = {
+            **pool_job_launches(svc, both, expected, seen, "concurrent"),
+            "wall_s": time.perf_counter() - t0}
+
+        t0 = time.perf_counter()
+        h = svc.submit(spec, timeout=600)
+        while h.stats()["items_collected"] <= KILL_AFTER_ITEMS:
+            if h.done():
+                raise SystemExit("the heal job ended before its kill")
+            time.sleep(0.002)
+        killed_at_items = h.stats()["items_collected"]
+        svc.kill_node("node1")
+        t_kill = time.perf_counter()
+        heal = pool_job_launches(svc, [h], expected, seen, "heal",
+                                 skip=("node1",))
+        heal_wall_s = time.perf_counter() - t0
+        hl = svc.host_loader
+        replacements = [nid for nid in hl.membership.nodes
+                        if nid.startswith("node1r")]
+        if hl.stats.heals != POOL_HEALS or len(replacements) != 1:
+            raise SystemExit(f"heals {hl.stats.heals}, replacements "
+                             f"{replacements}: the kill must be healed once")
+        (replacement,) = replacements
+        # Booted: its heartbeat reports a boot time once its preload (the
+        # import of torch) is done.
+        deadline = time.monotonic() + 300
+        while not node_boot_ms(svc).get(replacement):
+            if time.monotonic() > deadline:
+                raise SystemExit(f"replacement {replacement} never booted: "
+                                 f"{hl.membership.describe()}")
+            time.sleep(0.05)
+        out["heal"] = {
+            **heal, "wall_s": heal_wall_s, "killed": "node1",
+            "killed_at_items": killed_at_items,
+            "replacement": replacement,
+            "kill_to_replacement_booted_s": time.perf_counter() - t_kill,
+            "deaths_detected": hl.stats.deaths_detected,
+            "redispatched": hl.stats.redispatched,
+            "duplicates_dropped": h.stats()["duplicates_dropped"]}
+    finally:
+        svc.close()
+    out["node_timing"] = {t.node_id: t.as_dict() for t in svc.timing.nodes
+                          if t.node_id != "host"}
+    if replacement not in out["node_timing"]:
+        raise SystemExit(f"the replacement {replacement} returned no timing")
+    out["heal"]["replacement_boot_ms"] = \
+        out["node_timing"][replacement]["boot_ms"]
+    exits = {nid: h.returncode for nid, h in svc.handles.items()}
+    out["exit_codes"] = exits
+    if svc.orphaned() or any(code != 0 for nid, code in exits.items()
+                             if nid != "node1"):
+        raise SystemExit(f"node-loaders left running {svc.orphaned()} or "
+                         f"survivors exited non-zero {exits}")
+    emit({"phase": "job_service", **out})
+
+
 def main() -> None:
     kind = torch.cuda.get_device_name(0)
     card = nvidia_smi("name,power.limit")
@@ -614,6 +779,7 @@ def main() -> None:
     threads_wall_s.append(wall_s)
     emit({"phase": "job_threads_again", "wall_s": wall_s,
           "threads_wall_s": threads_wall_s})
+    run_service_jobs(expected, threads_wall_s)
     probe_node_boot()
 
     # The work function alone, serially in this thread: the job's work

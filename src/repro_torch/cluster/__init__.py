@@ -25,27 +25,43 @@ Modules (one per architectural role):
   UT shutdown);
 * :mod:`repro_torch.cluster.peer` — the peer data plane: results of a
   ``route="peer"`` stage hop go node to node, the host keeping only the
-  exactly-once ledger;
+  exactly-once ledger; named broadcast blocks striped over the pool;
 * :mod:`repro_torch.cluster.membership` — registry + heartbeat tracking feeding the
   ``runtime.failures`` detection thresholds, with a launch lifecycle
   (launching/registered/loaded/done/dead/replaced) for the placement policy;
 * :mod:`repro_torch.cluster.deploy` — the pluggable deployment layer: the
   :class:`~repro_torch.cluster.deploy.base.Launcher` contract plus LocalLauncher
-  (subprocesses, §6.1 "test on one host first") and InProcessLauncher
-  (threads, for launcher-logic tests);
+  (subprocesses, §6.1 "test on one host first"), SSHLauncher (the identical
+  node-loader command fanned out over ssh, with rsync/tar code sync) and
+  InProcessLauncher (threads, for launcher-logic tests);
 * :mod:`repro_torch.cluster.spawn` — ProcessClusterApplication: cluster lifecycle
   + placement policy over whichever launcher the deployment chose;
+* :mod:`repro_torch.cluster.service` — ClusterService: a persistent warm node pool
+  multiplexing many jobs over one bootstrap (digest-keyed warm code cache,
+  FIFO-with-priority scheduling);
+* :mod:`repro_torch.cluster.gateway` — the job gateway in front of the service:
+  a durable SQLite-backed submit queue (tickets survive client disconnects
+  and gateway restarts), a weighted-fair multi-tenant admission scheduler
+  (deficit round robin + per-tenant in-flight caps), and a queue-driven
+  autoscaler growing/shrinking the pool through the launcher's late-join
+  and graceful-retirement paths;
 * :mod:`repro_torch.cluster.telemetry` — live observability: the event bus +
   metrics registry every host-side component publishes into, the
-  ``GET /metrics`` / dashboard HTTP endpoint, and the JSONL trace writer.
-
-The JAX package's persistent warm pool (``cluster/service.py``), its job
-gateway (``cluster/gateway``), its fault injector (``cluster/chaos.py``) and
-its ssh launcher (``cluster/deploy/ssh.py``) are not ported yet.
+  ``GET /metrics`` / dashboard HTTP endpoint, and the JSONL trace writer;
+* :mod:`repro_torch.cluster.chaos` — fault injection against the real transport:
+  a declarative :class:`~repro_torch.cluster.chaos.FaultPlan` (kill/drop/delay/
+  duplicate/corrupt/stall-heartbeat/partition/straggler) armed by a
+  :class:`~repro_torch.cluster.chaos.ChaosController`, exercising the heal +
+  retry machinery continuously (``ClusterService(chaos=...)``).
 
 This package must stay importable without torch: the node-loader bootstrap path
 (wire/netchannels/membership/node_loader) imports no accelerator code; user
 work functions pull in whatever they need when the shipped code is loaded.
 """
 
+from repro_torch.cluster.chaos import (  # noqa: F401
+    ChaosController,
+    Fault,
+    FaultPlan,
+)
 from repro_torch.cluster.wire import UT, Frame, FrameType  # noqa: F401

@@ -8,15 +8,14 @@ host's load address.  This package isolates that concern behind the
 
 * :class:`LocalLauncher` — subprocesses on this machine (§6.1 single-host
   confidence building; the seed behaviour);
+* :class:`SSHLauncher` — the same command fanned out over ssh to idle
+  workstations, with rsync / tar-over-ssh code sync;
 * :class:`InProcessLauncher` — node-loaders as threads (fast
   launcher-logic and placement-policy tests).
 
 :class:`PlacementPolicy` is the host-side companion: what the registration
 barrier does when launches misbehave (respawn silent nodes, degraded start
 with ``min_nodes`` survivors, late join mid-run).
-
-The JAX package's ``SSHLauncher`` (ssh fan-out to idle workstations) is not
-ported yet.
 """
 
 from repro_torch.cluster.deploy.base import (  # noqa: F401
@@ -34,3 +33,4 @@ from repro_torch.cluster.deploy.local import (  # noqa: F401
     node_loader_argv,
     spawn_node_loader,
 )
+from repro_torch.cluster.deploy.ssh import SSHLauncher  # noqa: F401

@@ -10,7 +10,7 @@ This module answers it with a small pluggable surface:
   :meth:`Launcher.prepare` (told the host's connect address once the load
   port is bound) and :meth:`Launcher.close`.
 * :class:`NodeHandle` — ``poll``/``wait``/``kill``/``logs`` over one launched
-  node-loader, however it is incarnated (subprocess, ssh, thread).
+  node-loader, however it is incarnated (subprocess, ssh session, thread).
 * :class:`PlacementPolicy` — what the host does when launches misbehave:
   respawn a node that never registers (``max_respawns``), admit the job with
   survivors (``min_nodes``), and let stragglers join after the run started
@@ -18,7 +18,7 @@ This module answers it with a small pluggable surface:
 
 Concrete launchers: :class:`~repro_torch.cluster.deploy.local.LocalLauncher`
 (subprocesses on this machine), :class:`~repro_torch.cluster.deploy.ssh.SSHLauncher`
-(the same command fanned out over ssh; not ported yet), and
+(the same command fanned out over ssh), and
 :class:`~repro_torch.cluster.deploy.inprocess.InProcessLauncher` (threads, for fast
 launcher-logic tests).  No module here may import torch — launchers run on the
 bare bootstrap side of the code-shipping boundary.
@@ -108,10 +108,11 @@ class PlacementPolicy:
     * ``allow_late_join`` — a node registering after the run started is
       given LOAD and answered credits immediately (the per-registration
       LOAD path always supported this; the barrier was what blocked it).
-
-    A node that dies *during* a run is not replaced: the job shrinks to the
-    survivors (the JAX package's mid-run healing, ``max_heals``, comes with
-    its fault injector).
+    * ``max_heals`` — a node that dies *during* a run is relaunched through
+      the same ``_relaunch`` path (mid-run pool healing: dead → launching →
+      registered, warm code re-shipped, credits re-armed), up to this many
+      times cluster-wide.  0 keeps the historical behaviour of shrinking
+      to survivors.
 
     ``respawn_after=None`` spreads the respawn budget evenly across the
     registration window (``register_timeout / (max_respawns + 1)``).
@@ -121,6 +122,7 @@ class PlacementPolicy:
     max_respawns: int = 0
     respawn_after: float | None = None
     allow_late_join: bool = True
+    max_heals: int = 0
 
     def validate(self, nclusters: int) -> None:
         if self.min_nodes is not None and not (
@@ -130,3 +132,5 @@ class PlacementPolicy:
             )
         if self.max_respawns < 0:
             raise ValueError(f"max_respawns must be >= 0, got {self.max_respawns}")
+        if self.max_heals < 0:
+            raise ValueError(f"max_heals must be >= 0, got {self.max_heals}")

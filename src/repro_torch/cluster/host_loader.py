@@ -23,14 +23,27 @@ Bootstrap sequence (the load network):
    record (requirement 7) and the HNL folds results via the user's
    ResultDetails.
 
-One job, keyed by its wire ``job_id`` (wire v2): all per-farm state —
-per-stage pending/in-flight/dedup queues, the emit generator, the collector
-accumulator — lives in a :class:`JobState`.  ``run()`` admits the spec as
-that job, dispatches until it completes and returns its result.  A node's
-credits are answered only once it acked the job's LOAD
-(``NodeRecord.jobs_loaded`` — work never races ahead of its code).  The JAX
-package's warm service (a node pool fed many jobs, with priorities and
-per-tenant budgets) is not ported yet.
+Multi-job multiplexing (wire v2): the HNL is a *job dispatcher*, not a
+one-shot farm.  All per-farm state — per-stage pending/in-flight/dedup
+queues, the emit generator, the collector accumulator — lives in a
+:class:`JobState` keyed by the frame-header ``job_id``, so two jobs can
+interleave on the same node pool with exactly-once preserved per job.  The
+classic one-shot ``run()`` is simply "one pinned job admitted at
+construction, dispatch until it completes"; a warm
+:class:`~repro_torch.cluster.service.ClusterService` instead constructs the
+HostLoader in *pool mode* (``spec=None, pool_nodes=N``) and drives
+``serve()`` on a background thread, feeding jobs in through
+``submit_job``.  Scheduling is FIFO-with-priority: parked node credits are
+answered from the highest-priority admitted job that has (a) pending items
+and (b) acked its LOAD on that node (``NodeRecord.jobs_loaded`` — work for
+a job never races ahead of its code).
+
+Warm code shipping: each stage function is pickled once per job and
+addressed by digest.  The host mirrors every node's code-cache LRU
+(``NodeRecord.code_digests``, same capacity and touch order — frames
+arrive in send order on one TCP stream), so a resubmission of the same
+pipeline ships ``function=None`` and the node rebinds from cache: ~0ms
+load on top of the pool's ~0ms boot.
 
 Multi-stage routing (``PipelineSpec``): every one-shot node belongs to one
 stage; the host keeps *per-stage* pending/in-flight/dedup state and
@@ -41,9 +54,10 @@ fresh WORK items of stage *s+1* (the final stage folds into the collector)
 model has reducer *s* feeding server *s+1*.  Stage *s*'s input is
 exhausted once the emit stream (s = 0) or stage *s-1* (s > 0) has fully
 drained, at which point parked credits of stage-*s* nodes are answered
-with UT.  Exactly-once holds per stage: result-id dedup before forwarding
-means a redispatched zombie's duplicate can neither double-collect nor
-double-forward.
+with UT.  Exactly-once holds per stage *per job*: result-id dedup before
+forwarding means a redispatched zombie's duplicate can neither
+double-collect nor double-forward.  Pool-mode nodes are not pinned — any
+node serves any stage of any job (items carry their stage index ``s``).
 
 Beyond the paper: heartbeat liveness (``membership``) — a node-loader that
 dies mid-job is detected by missed beats, its in-flight items re-queued and
@@ -74,9 +88,11 @@ from repro_torch.cluster.membership import (
     Membership,
     NodeRecord,
 )
+from repro_torch.cluster import peer as peer_mod
 from repro_torch.cluster.telemetry import Telemetry
 from repro_torch.cluster.wire import (
     APP_WIRE_CHANNEL,
+    CODE_CACHE_SLOTS,
     LOAD_WIRE_CHANNEL,
     Frame,
     FrameConnection,
@@ -104,7 +120,8 @@ class HostStats:
     result_batches: int = 0  # RESULT/RESULT_BATCH frames received
     max_batch: int = 0  # largest WORK_BATCH dispatched
     # Placement-policy counters (deployment layer).
-    respawns: int = 0  # silent launches relaunched elsewhere
+    respawns: int = 0  # launches relaunched elsewhere (bootstrap + heals)
+    heals: int = 0  # mid-run deaths answered with a replacement launch
     late_joins: int = 0  # nodes admitted after the run started
     degraded_start: bool = False  # job admitted below full strength
     # Peer data-plane counters (the host demoted to control plane).
@@ -117,15 +134,30 @@ class HostStats:
 class JobState:
     """All farm state of one submitted job, keyed by its wire ``job_id``.
 
-    The per-stage farm state plus lifecycle (``done``/``error``/
-    ``result``).  Mutated only by the dispatcher thread; ``done`` is the
-    cross-thread completion signal.  Every node serves the one stage the
-    spec assigns it.
+    Exactly the per-stage state the one-shot host kept in run()-local
+    variables, plus lifecycle (``done``/``error``/``result``) so service
+    callers can wait on a job like a future.  Mutated only by the
+    dispatcher thread; ``done`` is the cross-thread completion signal.
     """
 
-    def __init__(self, job_id: int, spec):
+    def __init__(self, job_id: int, spec, *, priority: int = 0,
+                 pinned: bool = False, timeout: float | None = None,
+                 tenant: str = "default",
+                 max_inflight: int | None = None):
+        if hasattr(spec, "as_pipeline"):
+            spec = spec.as_pipeline()
+        spec.validate()
         self.job_id = job_id
         self.spec = spec
+        self.priority = priority
+        self.pinned = pinned  # one-shot mode: nodes serve their own stage
+        self.timeout = timeout
+        # Multi-tenant metering (the gateway's fairness knobs): all jobs of
+        # one tenant share a host-dispatched in-flight item budget — the
+        # dispatch path (_answer) stops drawing for the tenant at the cap,
+        # so a wide job cannot monopolise node credits.
+        self.tenant = tenant
+        self.max_inflight = max_inflight
         self.S = len(spec.stages)
         S = self.S
         details = spec.emit.e_details
@@ -169,8 +201,8 @@ class JobState:
         self.dispatch_ts: dict[tuple[int, int], float] = {}
         self.r_details = spec.collector.r_details
         self.acc = self.r_details.init()
-        # Shipped code, one (digest, pickled blob) per stage: pickled once,
-        # addressed by digest (the node keys its code cache by it).
+        # Shipped code, one (digest, pickled blob) per stage: pickled
+        # once per job, addressed by digest for the warm-cache LRU.
         self.stage_code: list[tuple[str, bytes]] = []
         for st in spec.stages:
             blob = dumps_code(st.function)
@@ -181,19 +213,26 @@ class JobState:
         self.result: Any = None
         self.deadline: float | None = None
         self.submitted_at: float | None = None
+        self.first_result_at: float | None = None
         self.ended_at: float | None = None
-        # Failure attribution: which node the fatal error surfaced on (if
-        # any) and a coarse cause ("work_function" | "timeout" |
-        # "internal").
+        # Failure attribution for the retry history: which node the fatal
+        # error surfaced on (if any) and a coarse cause classification
+        # ("work_function" | "timeout" | "node_loss" | "internal").
         self.failed_node: str | None = None
         self.failure_kind: str | None = None
         self.items_collected = 0
-        # The job's counters the telemetry gauges report.
+        # Warm-load accounting (per job, summed over nodes).
         self.code_shipped = 0
+        self.code_cached = 0
+        # Per-job observability counters the telemetry gauges report; the
+        # per-node splits let JobHandle.stats() attribute work and cache
+        # behaviour to individual pool members.
         self.duplicates_dropped = 0
         self.forwarded = 0
         self.peer_forwarded = 0
         self.host_relay_bytes = 0
+        self.items_by_node: dict[str, int] = {}
+        self.cache_by_node: dict[str, dict[str, int]] = {}
 
     # -- farm state machine -------------------------------------------------
 
@@ -240,14 +279,23 @@ class JobState:
 
 
 class HostLoader:
-    """Runs the host side of one job: ``HostLoader(spec, ...)`` then
-    ``start()`` and ``run()``, which dispatches until the job completes and
-    returns its final result, sending UT to each node as its stage drains.
+    """Runs the host side of a node pool serving one or many jobs.
+
+    Two construction modes share one dispatcher:
+
+    * **one-shot** (the classic API): ``HostLoader(spec, ...)`` — the spec
+      becomes a *pinned* primary job admitted immediately; ``run()``
+      dispatches until it completes and returns the final result, sending
+      UT to each node as its stage drains.
+    * **pool** (the service): ``HostLoader(None, pool_nodes=N,
+      pool_workers=W, ...)`` — no job at boot; ``serve(stop)`` dispatches
+      jobs fed in via ``submit_job`` until ``stop`` is set, and nodes are
+      never UT'd on drain (credits park between jobs).
     """
 
     def __init__(
         self,
-        spec,
+        spec=None,
         timing: TimingCollector | None = None,
         *,
         host: str = "127.0.0.1",
@@ -256,21 +304,35 @@ class HostLoader:
         register_timeout: float = 30.0,
         job_timeout: float | None = None,
         slowdown: dict[str, float] | None = None,
+        artifacts: dict[str, bytes] | None = None,
         prefetch: int | None = None,
         flush_items: int = 8,
         flush_interval: float = 0.005,
         placement: PlacementPolicy | None = None,
         expected_nodes: Sequence[str] | None = None,
         relaunch: Callable[[str, str], bool] | None = None,
+        pool_nodes: int | None = None,
+        pool_workers: int = 1,
         telemetry: Telemetry | None = None,
+        conn_wrapper: Callable[[FrameConnection], Any] | None = None,
     ):
-        if hasattr(spec, "as_pipeline"):
-            spec = spec.as_pipeline()
-        spec.validate()
-        self.stages = spec.stages
-        self._stage_by_node = dict(spec.node_assignments())
-        total = spec.total_nodes
+        if spec is not None:
+            if hasattr(spec, "as_pipeline"):
+                spec = spec.as_pipeline()
+            spec.validate()
+            self.stages = spec.stages
+            self._stage_by_node = dict(spec.node_assignments())
+            total = spec.total_nodes
+        else:
+            if pool_nodes is None:
+                raise TypeError(
+                    "pool mode (spec=None) requires pool_nodes=<count>"
+                )
+            self.stages = []
+            self._stage_by_node = {}
+            total = pool_nodes
         self.spec = spec
+        self.pool_workers = pool_workers
         self.total_nodes = total
         self.timing = timing or TimingCollector()
         self.host = host
@@ -283,15 +345,26 @@ class HostLoader:
         self.expected_nodes = list(expected_nodes or [])
         # Deployment-layer callback: relaunch(old_node_id, new_node_id) ->
         # bool, provided by the application so the barrier can respawn a
-        # silent launch without knowing what a launcher is.
+        # silent launch — and the reaper heal a mid-run death — without
+        # knowing what a launcher is.
         self.relaunch = relaunch
+        self._heals_used = 0
+        # Chaos hook: every accepted connection is passed through this
+        # wrapper (identity when None) before its reader thread starts, so
+        # a fault layer sees every frame of every node.
+        self.conn_wrapper = conn_wrapper
         self.job_timeout = job_timeout
         self.slowdown = dict(slowdown or {})
+        self.artifacts = dict(artifacts or {})
         self.prefetch = prefetch
         self.flush_items = flush_items
         self.flush_interval = flush_interval
         self.stats = HostStats()
         self.result: Any = None
+        # Broadcast blocks: named read-only payloads published once on the
+        # host; nodes stripe the initial chunk fetches across themselves
+        # and then trade chunks peer-to-peer (~1 host copy total).
+        self.blocks = peer_mod.BlockRegistry()
 
         # Telemetry: lifecycle events and slow gauges are *pushed* from the
         # dispatcher at state changes; fast-moving values the host already
@@ -303,9 +376,17 @@ class HostLoader:
         self.telemetry.set_sampler("timing", self.timing.summary)
         self.membership.on_transition = self._on_node_transition
 
-        # The job, under the wire job_id 1 (0 is the load network's).
-        self._primary = JobState(1, spec)
-        self._jobs: dict[int, JobState] = {1: self._primary}
+        # Job table.  Written by the dispatcher (admission/completion) and
+        # by __init__ (the primary job); submit_job only allocates ids.
+        self._jobs: dict[int, JobState] = {}
+        self._job_seq = 0
+        self._job_lock = threading.Lock()
+        self._primary: JobState | None = None
+        if spec is not None:
+            self._primary = self._new_job(spec, pinned=True)
+            self._jobs[self._primary.job_id] = self._primary
+        self.pool_ready = threading.Event()
+        self.serve_error: BaseException | None = None
 
         self._events: queue.Queue = queue.Queue()
         self._early_events: list = []  # app frames arriving mid-bootstrap
@@ -317,12 +398,91 @@ class HostLoader:
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
 
+    # -- job admission ------------------------------------------------------
+
+    def _new_job(self, spec, *, pinned: bool, priority: int = 0,
+                 timeout: float | None = None, tenant: str = "default",
+                 max_inflight: int | None = None) -> JobState:
+        with self._job_lock:
+            self._job_seq += 1
+            jid = self._job_seq
+        return JobState(jid, spec, priority=priority, pinned=pinned,
+                        timeout=timeout, tenant=tenant,
+                        max_inflight=max_inflight)
+
+    def submit_job(self, spec, *, priority: int = 0,
+                   timeout: float | None = None, tenant: str = "default",
+                   max_inflight: int | None = None) -> JobState:
+        """Queue one job for the dispatcher (service mode).
+
+        Returns its :class:`JobState` — wait on ``.done``, then read
+        ``.result`` / ``.error``.  Higher ``priority`` jobs are answered
+        first when nodes demand work; ties dispatch FIFO (job id order).
+        ``tenant``/``max_inflight`` meter the dispatch path per tenant
+        (see :class:`JobState`); the gateway sets them, direct service
+        users normally leave the defaults.
+        """
+        job = self._new_job(spec, pinned=False, priority=priority,
+                            timeout=timeout, tenant=tenant,
+                            max_inflight=max_inflight)
+        job.submitted_at = time.monotonic()
+        self.telemetry.inc("jobs_submitted")
+        self.telemetry.emit("job_submit", job=job.job_id,
+                            priority=priority, tenant=tenant, stages=job.S)
+        self._events.put(("submit", job))
+        return job
+
+    def expect_nodes(self, node_ids: Sequence[str]) -> None:
+        """Announce launches after boot (the service's ``grow()`` path):
+        membership is single-writer, so the records are created on the
+        dispatcher thread.  Queued before ``launcher.launch`` is called,
+        so the LAUNCHING record always precedes its REGISTER."""
+        self._events.put(("expect", list(node_ids)))
+
+    def retract_nodes(self, node_ids: Sequence[str]) -> None:
+        """Withdraw launch announcements whose ``launcher.launch`` failed
+        (the service's ``grow()`` error path): a LAUNCHING record with no
+        process behind it would otherwise count as capacity on its way
+        forever — suppressing autoscale scale-ups and keeping stages
+        eligible in ``_check_liveness``."""
+        self._events.put(("retract", list(node_ids)))
+
+    def retire_node(self, node_id: str) -> None:
+        """Gracefully retire one pool node (the service's ``shrink()``
+        path): the dispatcher stops feeding it, sends UT — the node drains
+        its queue, flushes, returns its timing record and exits — and any
+        items still in flight host-side are requeued on UT ack exactly as
+        a death would, minus the death.  Refused (no-op) for the last
+        live node."""
+        self._events.put(("retire", node_id))
+
+    def _admit(self, job: JobState) -> None:
+        self._jobs[job.job_id] = job
+        if job.timeout is not None:
+            job.deadline = time.monotonic() + job.timeout
+        self.telemetry.emit("job_admit", job=job.job_id)
+        self._publish_job(job)
+        for rec in self.membership.nodes.values():
+            if rec.alive:
+                self._send_load(rec, job)
+
     def _sources(self, rec: NodeRecord) -> Iterator[tuple[JobState, int]]:
-        """The (job, stage) queue this node draws from: its own stage's,
-        once it acked the job's LOAD — work never races ahead of code."""
-        job = self._primary
-        if job.active and job.error is None and job.job_id in rec.jobs_loaded:
-            yield job, self._stage_of(rec.node_id)
+        """(job, stage) queues this node may draw from, scheduling order:
+        priority first, then admission order; within a job, later stages
+        first (drain the pipeline before widening it).  A job is skipped
+        until this node acked its LOAD — work never races ahead of code."""
+        jobs = sorted(
+            (j for j in self._jobs.values() if j.active and j.error is None),
+            key=lambda j: (-j.priority, j.job_id),
+        )
+        for job in jobs:
+            if job.job_id not in rec.jobs_loaded:
+                continue
+            if job.pinned:
+                yield job, self._stage_of(rec.node_id)
+            else:
+                for s in range(job.S - 1, -1, -1):
+                    yield job, s
 
     # -- bootstrap ----------------------------------------------------------
 
@@ -343,6 +503,8 @@ class HostLoader:
             except OSError:
                 return
             conn = FrameConnection(sock)
+            if self.conn_wrapper is not None:
+                conn = self.conn_wrapper(conn)
             t = threading.Thread(
                 target=self._conn_reader, args=(conn, f"{addr[0]}:{addr[1]}"),
                 name=f"hnl-reader-{addr[1]}", daemon=True,
@@ -377,6 +539,11 @@ class HostLoader:
         """One-shot: bootstrap, dispatch the primary job to completion,
         return its final result (the classic emit/cluster/collect farm)."""
         job = self._primary
+        if job is None:
+            raise RuntimeError(
+                "pool-mode HostLoader has no primary job; use serve() + "
+                "submit_job()"
+            )
         with self.timing.phase("host", "load"):
             self._await_registrations()
         # Every member is known now: ship the complete peer directory (the
@@ -389,7 +556,8 @@ class HostLoader:
         self._early_events.clear()
         job.submitted_at = time.monotonic()
         self.telemetry.inc("jobs_submitted")
-        self.telemetry.emit("job_submit", job=job.job_id, stages=job.S)
+        self.telemetry.emit("job_submit", job=job.job_id,
+                            priority=job.priority, stages=job.S)
         self._publish_job(job)
         if self.job_timeout is not None:
             job.deadline = job.submitted_at + self.job_timeout
@@ -399,15 +567,53 @@ class HostLoader:
         self.result = job.result
         return self.result
 
+    def serve(self, stop: threading.Event) -> None:
+        """Pool mode: bootstrap, then dispatch submitted jobs until ``stop``.
+
+        Run on a background thread by :class:`ClusterService`; bootstrap
+        failures land in ``serve_error`` (with ``pool_ready`` set so the
+        caller unblocks), and any job still active at shutdown is failed
+        rather than left hanging.
+        """
+        try:
+            with self.timing.phase("host", "load"):
+                self._await_registrations()
+        except BaseException as exc:
+            self.serve_error = exc
+            self.pool_ready.set()
+            return
+        self._broadcast_peer_dir()
+        for ev in self._early_events:
+            self._events.put(ev)
+        self._early_events.clear()
+        self.telemetry.emit("pool_ready",
+                            nodes=self.membership.arrived_count())
+        self.pool_ready.set()
+        try:
+            with self.timing.phase("host", "run"):
+                self._dispatch(stop=stop)
+        except BaseException as exc:  # dispatcher bug or unroutable failure
+            self.serve_error = exc
+        finally:
+            for job in list(self._jobs.values()):
+                if job.active:
+                    self._fail_job(job, self.serve_error
+                                   or RuntimeError("cluster service stopped"))
+            self._collect_wire_stats()
+
     # -- the dispatcher -----------------------------------------------------
 
-    def _dispatch(self, until_job: JobState) -> None:
+    def _dispatch(self, until_job: JobState | None = None,
+                  stop: threading.Event | None = None) -> None:
         interval = self.membership.monitor.interval_s
         while True:
-            if until_job.error is not None:
-                raise until_job.error
-            if until_job.done.is_set() and self.membership.finished():
-                break
+            if until_job is not None:
+                if until_job.error is not None:
+                    raise until_job.error
+                if until_job.done.is_set() and self.membership.finished():
+                    break
+            if stop is not None and stop.is_set():
+                return
             now = time.monotonic()
             for job in [j for j in self._jobs.values() if j.active]:
                 # Zero-item jobs (and jobs drained by parked-credit answers)
@@ -416,7 +622,8 @@ class HostLoader:
                 if job.active and job.deadline is not None \
                         and now > job.deadline:
                     self._fail_job(job, TimeoutError(
-                        f"cluster job exceeded {self.job_timeout}s "
+                        f"cluster job exceeded "
+                        f"{job.timeout or self.job_timeout}s "
                         f"(done={job.items_collected}, "
                         f"inflight={[len(f) for f in job.inflight]}, "
                         f"membership:\n{self.membership.describe()})"
@@ -464,6 +671,8 @@ class HostLoader:
                     rep = (frame.payload or {}).get("report")
                     if rep:
                         self.telemetry.set_node(node_id, report=rep)
+                elif frame.ftype is FrameType.BLOCK_REQUEST:
+                    self._serve_block(node_id, frame.payload or {})
                 elif frame.ftype is FrameType.UT:
                     self._node_finished(node_id, frame.payload)
             elif kind == "loaded":
@@ -487,7 +696,8 @@ class HostLoader:
                 # never depended on when a node joined.
                 _, node_id, addr, conn, payload = event
                 # An *expected* arrival — an announced launch (a degraded
-                # start's straggler, a bootstrap respawn) registering late — is admitted even when elastic late
+                # start's straggler, a bootstrap respawn, a mid-run heal)
+                # registering late — is admitted even when elastic late
                 # join is disabled: the policy gates strangers, not
                 # capacity the host itself asked for.
                 prior = self.membership.nodes.get(node_id)
@@ -510,10 +720,35 @@ class HostLoader:
                 self.stats.late_joins += 1
                 self.telemetry.emit("late_join", node=node_id, address=addr,
                                     expected=expected)
-                self._send_load(rec, self._primary)
-                # The routing peers must learn the newcomer (and it them)
-                # or peer hops route around it forever.
+                if self._primary is not None:
+                    self._send_load(rec, self._primary)
+                else:
+                    self._send_load(rec, None)  # pool config first
+                    for job in self._jobs.values():
+                        if job.active:
+                            self._send_load(rec, job)
+                # The pool's routing peers must learn the newcomer (and it
+                # the pool) or peer hops route around it forever.
                 self._broadcast_peer_dir()
+            elif kind == "blocks":
+                self._broadcast_blocks()
+            elif kind == "submit":
+                self._admit(event[1])
+            elif kind == "expect":
+                # Pool growth: announce the launches so their REGISTERs
+                # take the *expected*-arrival path (admitted even with
+                # elastic late join disabled).
+                for node_id in event[1]:
+                    if node_id not in self.membership.nodes:
+                        self.membership.expect(node_id)
+            elif kind == "retract":
+                # A grow() launch failed after its announcement: clear
+                # the phantom record (the loop-end _check_liveness then
+                # fails fast any job it was the last hope of).
+                for node_id in event[1]:
+                    self.membership.retract(node_id)
+            elif kind == "retire":
+                self._retire(event[1])
             self._check_liveness()
 
     # -- data plane ---------------------------------------------------------
@@ -555,32 +790,101 @@ class HostLoader:
         except (OSError, ValueError):
             pass
 
+    def _retire(self, node_id: str) -> None:
+        """Graceful pool shrink (dispatcher thread — membership stays
+        single-writer).  The node is fenced first (``retiring`` stops
+        ``_answer`` feeding it) so no WORK_BATCH can race past the UT;
+        its in-flight items come back via the UT-ack requeue."""
+        rec = self.membership.nodes.get(node_id)
+        live = [r for r in self.membership.nodes.values()
+                if r.alive and not r.retiring]
+        if rec is None or not rec.alive or rec.retiring or len(live) <= 1:
+            self.telemetry.emit("scale_down_skipped", node=node_id,
+                                live=len(live))
+            return
+        rec.retiring = True
+        rec.credits = 0
+        self._send_ut(node_id)
+        self.telemetry.inc("scale_down_events")
+        self.telemetry.emit("scale_down", node=node_id,
+                            pool=len(live) - 1)
+
+    def _tenant_room(self, job: JobState,
+                     used: dict[str, int]) -> int | None:
+        """Remaining host-dispatched in-flight budget of this job's tenant
+        (None = uncapped).  ``used`` memoizes per-_answer-call totals and
+        accumulates the items drawn during the call."""
+        if job.max_inflight is None:
+            return None
+        tenant = job.tenant
+        if tenant not in used:
+            used[tenant] = sum(
+                sum(len(f) for f in j.inflight)
+                for j in self._jobs.values()
+                if j.active and j.tenant == tenant
+            )
+        return max(0, job.max_inflight - used[tenant])
+
+    def _stage_room(self, job: JobState, s: int, rec: NodeRecord) -> int | None:
+        """Per-stage prefetch cap on a *pool* node (None = uncapped): the
+        per-stage ``prefetch=`` knob used to bind only on pinned one-shot
+        deployments (where the node's whole window is one stage); on a
+        shared pool it becomes a host-side admission cap — at most
+        ``pool_workers + prefetch`` of this (job, stage)'s items in flight
+        per node."""
+        if job.pinned:
+            return None  # resolved node-side via the LOAD window
+        st = job.spec.stages[s]
+        if st.prefetch is None:
+            return None
+        cap = self.pool_workers + max(0, int(st.prefetch))
+        held = sum(1 for nid, _ in job.inflight[s].values()
+                   if nid == rec.node_id)
+        return max(0, cap - held)
+
     def _answer(self, node_id: str, credits: int) -> None:
         """Answer demand (the onrl server obligation), up to ``credits`` +
-        any previously parked credits, drawn from the node's stage queue in
-        one WORK_BATCH."""
+        any previously parked credits, drawn from the node's eligible
+        (job, stage) queues in scheduling order — one WORK_BATCH per job
+        touched.  Two admission caps can shrink a draw below the credit
+        window: the tenant in-flight budget (gateway fairness) and the
+        per-stage prefetch cap (pool jobs)."""
         rec = self.membership.nodes.get(node_id)
-        if rec is None or not rec.alive:
+        if rec is None or not rec.alive or rec.retiring:
             return
         want = credits + rec.credits
         rec.credits = 0
         if want <= 0:
             return
         sent = 0
+        tenant_used: dict[str, int] = {}
         for job, s in self._sources(rec):
+            limit = want - sent
+            room = self._tenant_room(job, tenant_used)
+            if room is not None:
+                limit = min(limit, room)
+            stage_room = self._stage_room(job, s, rec)
+            if stage_room is not None:
+                limit = min(limit, stage_room)
             batch = []
-            while len(batch) < want:
+            while len(batch) < limit:
                 item = job.next_item(s)
                 if item is None:
                     break
                 batch.append(item)
-            if batch and not self._send_batch(rec, job, batch, s):
+            if not batch:
+                continue
+            if not self._send_batch(rec, job, batch, s):
                 return  # dead pipe (items requeued) or job failed on encode
+            if job.max_inflight is not None:
+                tenant_used[job.tenant] += len(batch)
             sent += len(batch)
+            if sent >= want:
+                break
         leftover = want - sent
         if leftover:
             primary = self._primary
-            if (primary.error is None
+            if (primary is not None and primary.error is None
                     and primary.stage_done(self._stage_of(node_id))):
                 # One-shot: this node's stage drained — it is owed UT.
                 self._send_ut(node_id)
@@ -696,6 +1000,8 @@ class HostLoader:
         self.stats.peer_forwarded += 1
         job.forwarded += 1
         job.peer_forwarded += 1
+        job.items_by_node[node_id] = \
+            job.items_by_node.get(node_id, 0) + 1
         rec = self.membership.nodes.get(node_id)
         if rec is not None:
             rec.items_done += 1
@@ -732,18 +1038,23 @@ class HostLoader:
             out[rec.node_id] = (ip, rec.peer_port)
         return out
 
-    def _peer_routes(self, job: JobState) -> dict:
-        """Host-assigned routing table for the job's peer hops: for each
-        source stage the ordered target list (the nodes assigned to the
-        receiving stage), the partition mode, and the serialized key
-        function for keyed shuffles."""
-        if not job.peer_hops:
+    def _peer_routes(self, job: JobState | None) -> dict:
+        """Host-assigned routing table for one job's peer hops: for each
+        source stage the ordered target list (stage-s+1 capacity), the
+        partition mode, and the serialized key function for keyed
+        shuffles.  Pool jobs route over every routable member (any node
+        serves any stage); pinned one-shot jobs route to the nodes
+        assigned to the receiving stage."""
+        if job is None or not job.peer_hops:
             return {}
         directory = self._peer_dir()
         routes: dict[str, dict] = {}
         for s, cfg in sorted(job.peer_hops.items()):
-            targets = [nid for nid, st in job.spec.node_assignments()
-                       if st == s + 1 and nid in directory]
+            if job.pinned:
+                targets = [nid for nid, st in job.spec.node_assignments()
+                           if st == s + 1 and nid in directory]
+            else:
+                targets = [nid for nid in directory]
             key_fn = cfg.get("key_fn")
             routes[str(s)] = {
                 "targets": targets,
@@ -754,36 +1065,96 @@ class HostLoader:
         return routes
 
     def _send_peer_refresh(self, rec: NodeRecord) -> None:
-        """Ship the peer directory and the job's routing table as known
-        now to one node (a LOAD with no ``workers`` key is a refresh, not a
+        """Ship the peer directory as known now to one node, with the
+        routing table of every active job that has peer hops, built from
+        that directory (a LOAD with no ``workers`` key is a refresh, not a
         deployment)."""
-        job = self._primary
-        payload = {"peer": {"dir": self._peer_dir(),
-                            "routes": self._peer_routes(job)}}
+        directory = self._peer_dir()
+        frames = [Frame(FrameType.LOAD,
+                        {"peer": {"dir": directory,
+                                  "routes": self._peer_routes(job)}},
+                        LOAD_WIRE_CHANNEL, job_id=job.job_id)
+                  for job in self._jobs.values()
+                  if job.active and job.peer_hops]
+        if not frames:
+            frames = [Frame(FrameType.LOAD,
+                            {"peer": {"dir": directory, "routes": {}}},
+                            LOAD_WIRE_CHANNEL)]
         try:
-            rec.conn.send(Frame(FrameType.LOAD, payload, LOAD_WIRE_CHANNEL,
-                                job_id=job.job_id))
+            for frame in frames:
+                rec.conn.send(frame)
         except (OSError, ValueError):
             pass
 
     def _broadcast_peer_dir(self) -> None:
-        """Ship the complete peer directory, and the routing table built
+        """Ship the complete peer directory, and the routing tables built
         from it, to every live node.  Called after the membership barrier
-        and on every late join: a per-registration LOAD carried only the
-        members known when it was built, so a sender that registered before
-        its receiving stage's nodes would otherwise relay every hop through
-        the host.  A node whose own LOAD is still in flight gets the same
-        refresh again once that LOAD is sent (``_apply_load_result``), so
-        its stale table never has the last word."""
+        and on every late join/heal: a per-registration LOAD carried only
+        the members known when it was built, so a sender that registered
+        before its receiving stage's nodes would otherwise relay every hop
+        through the host.  A node whose own LOAD is still in flight gets
+        the same refresh again once that LOAD is sent
+        (``_apply_load_result``), so its stale table never has the last
+        word."""
         if not self._peer_dir():
             return
         for rec in self.membership.nodes.values():
             if rec.alive and rec.conn is not None:
                 self._send_peer_refresh(rec)
 
+    def _broadcast_blocks(self) -> None:
+        """Push the block manifest to every live node so striped fetches
+        start now rather than on the next job LOAD."""
+        manifest = self.blocks.manifest()
+        if not manifest:
+            return
+        payload = {"blocks": manifest, "peer": {"dir": self._peer_dir(),
+                                                "routes": {}}}
+        for rec in self.membership.nodes.values():
+            if not rec.alive or rec.conn is None:
+                continue
+            try:
+                rec.conn.send(Frame(FrameType.LOAD, payload,
+                                    LOAD_WIRE_CHANNEL))
+            except (OSError, ValueError):
+                pass
+
+    def _serve_block(self, node_id: str, p: dict) -> None:
+        """Answer one striped BLOCK_REQUEST with its chunk (data=None on a
+        miss — the node retries from peers or re-requests later)."""
+        rec = self.membership.nodes.get(node_id)
+        if rec is None or rec.conn is None:
+            return
+        name = p.get("name")
+        idx = int(p.get("chunk", 0))
+        data = self.blocks.get_chunk(name, idx)
+        if data is not None:
+            self.telemetry.observe("block_chunk_bytes", len(data))
+        try:
+            rec.conn.send(Frame(
+                FrameType.BLOCK_CHUNK,
+                {"name": name, "chunk": idx, "data": data},
+                LOAD_WIRE_CHANNEL,
+            ))
+        except (OSError, ValueError):
+            pass
+
+    def publish_block(self, name: str, data: bytes) -> str:
+        """Publish a named read-only payload for the whole pool; returns
+        its digest.  Registration is synchronous (any thread); the
+        manifest broadcast rides the event queue so socket writes stay on
+        the dispatcher."""
+        digest = self.blocks.publish(name, data)
+        self._events.put(("blocks",))
+        return digest
+
+    def _items_collected(self) -> int:
+        if self._primary is not None:
+            return self._primary.items_collected
+        return sum(j.items_collected for j in self._jobs.values())
+
     def _reap(self, now: float | None = None) -> None:
-        newly_dead = self.membership.reap(
-            now, at_item=self._primary.items_collected)
+        newly_dead = self.membership.reap(now, at_item=self._items_collected())
         for rec in newly_dead:
             self._on_node_death(rec)
         if newly_dead:
@@ -791,7 +1162,8 @@ class HostLoader:
 
     def _on_node_death(self, rec: NodeRecord) -> None:
         """One detected mid-run death: surface it on the bus with its
-        detection metadata and requeue the node's in-flight items."""
+        detection metadata, requeue the node's in-flight items, and — if
+        the policy grants a heal — relaunch a replacement."""
         self.stats.deaths_detected += 1
         ev = rec.last_failure
         self.telemetry.inc("failures_detected")
@@ -805,6 +1177,7 @@ class HostLoader:
             at_item=ev.step if ev else None,
         )
         self._requeue_node_items(rec.node_id)
+        self._heal(rec)
 
     def _requeue_node_items(self, node_id: str) -> bool:
         """Requeue every item a departed node can no longer deliver.
@@ -843,6 +1216,43 @@ class HostLoader:
                     self.stats.peer_redispatched += 1
                     requeued = True
         return requeued
+
+    def _heal(self, rec: NodeRecord) -> bool:
+        """Mid-run pool healing: answer a death with a fresh launch through
+        the same ``relaunch`` path the bootstrap respawn uses.
+
+        The replacement is announced (LAUNCHING) and registers through the
+        dispatcher like any expected straggler — LOAD (warm code cache
+        re-shipped), credits armed by its first WORK_REQUEST — completing
+        the dead → launching → registered transition chain.  Budgeted by
+        ``PlacementPolicy.max_heals`` (0 = historical shrink-to-survivors).
+        """
+        if (self.relaunch is None or self._stop.is_set()
+                or self._heals_used >= self.placement.max_heals):
+            return False
+        attempts = rec.attempts + 1
+        new_id = f"{rec.node_id}r{attempts}"
+        while new_id in self.membership.nodes:  # bootstrap respawn took it
+            attempts += 1
+            new_id = f"{rec.node_id}r{attempts}"
+        try:
+            ok = self.relaunch(rec.node_id, new_id)
+        except Exception:
+            ok = False
+        if not ok:
+            self.telemetry.emit("heal_failed", node=rec.node_id,
+                                replacement=new_id)
+            return False
+        nrec = self.membership.expect(new_id)
+        nrec.attempts = attempts
+        self._heals_used += 1
+        self.stats.heals += 1
+        self.stats.respawns += 1
+        self.telemetry.inc("heals")
+        self.telemetry.emit("heal", node=rec.node_id, replacement=new_id,
+                            heals_used=self._heals_used,
+                            heals_budget=self.placement.max_heals)
+        return True
 
     def _collect_results(self, node_id: str, job_id: int, results: list,
                          credits: int) -> None:
@@ -907,7 +1317,11 @@ class HostLoader:
                 else:
                     job.acc = job.r_details.collect(job.acc, p["value"])
                     job.items_collected += 1
+                    if job.first_result_at is None:
+                        job.first_result_at = time.monotonic()
                     self.stats.items_total += 1
+                job.items_by_node[node_id] = \
+                    job.items_by_node.get(node_id, 0) + 1
                 rec = self.membership.nodes[node_id]
                 rec.items_done += 1
                 self.timing.count_item(node_id)
@@ -939,6 +1353,8 @@ class HostLoader:
         # snapshotting /metrics the instant result() returns must already
         # see done=True.
         job.done.set()
+        if not job.pinned:
+            self._send_job_close(job)
 
     def _fail_job(self, job: JobState, exc: BaseException, *,
                   node: str | None = None, kind: str | None = None) -> None:
@@ -962,13 +1378,14 @@ class HostLoader:
         self._publish_job(job)
         # As in _maybe_finish: gauges first, then release waiters.
         job.done.set()
-        # Aborted/timed-out jobs must tear down on every error path, or
-        # nodes keep stale bindings (and keep computing a window of items
-        # for a job nobody will collect).
+        # Aborted/timed-out jobs must tear down on *every* error path —
+        # pinned included — or nodes keep stale bindings (and keep
+        # computing a window of items for a job nobody will collect).
         self._send_job_close(job)
 
     def _send_job_close(self, job: JobState) -> None:
-        """Job teardown: nodes drop the job's bindings.
+        """Per-job teardown: nodes drop the job's bindings (warm code cache
+        entries survive) and their credits stay pooled for the next job.
 
         Sent to *every* live node, not just those that acked the job's
         LOAD: a node whose LOAD is still in flight when the job dies would
@@ -1000,8 +1417,11 @@ class HostLoader:
             for s in range(job.S):
                 if job.stage_drained(s):
                     continue
-                members = [rec for rec in self.membership.nodes.values()
-                           if self._stage_of(rec.node_id) == s]
+                if job.pinned:
+                    members = [rec for rec in self.membership.nodes.values()
+                               if self._stage_of(rec.node_id) == s]
+                else:
+                    members = list(self.membership.nodes.values())
                 if any(rec.alive
                        or (rec.state == LAUNCHING
                            and now - rec.state_changed_at
@@ -1116,8 +1536,17 @@ class HostLoader:
                     rep = (frame.payload or {}).get("report")
                     if rep:
                         self.telemetry.set_node(node_id, report=rep)
+                elif frame.ftype is FrameType.BLOCK_REQUEST:
+                    # A fast-booting node striping pre-published blocks
+                    # while stragglers still register.
+                    self._serve_block(node_id, frame.payload or {})
                 else:
                     self._early_events.append(event)
+                continue
+            if event[0] == "submit":
+                # A service job submitted before the pool finished booting:
+                # admission happens in the dispatcher, after the barrier.
+                self._early_events.append(event)
                 continue
             if event[0] != "register":
                 continue  # pre-bootstrap noise
@@ -1159,46 +1588,98 @@ class HostLoader:
 
     # -- code shipping ------------------------------------------------------
 
-    def _send_load(self, rec: NodeRecord, job: JobState) -> None:
-        """Ship the deployment (the node's stage of the job) to one node
-        from a dedicated sender thread.
+    def _load_entries(self, rec: NodeRecord, job: JobState) -> list[dict]:
+        """Per-stage LOAD entries for one node, consulting (and updating)
+        the host's mirror of its code-cache LRU: a digest the node still
+        holds ships ``function=None`` (the warm-resubmit fast path)."""
+        if job.pinned:
+            s_list = [self._stage_of(rec.node_id)]
+        else:
+            s_list = list(range(job.S))
+        entries = []
+        cache = job.cache_by_node.setdefault(rec.node_id,
+                                             {"hits": 0, "misses": 0})
+        for s in s_list:
+            digest, blob = job.stage_code[s]
+            if digest in rec.code_digests:
+                rec.code_digests.move_to_end(digest)
+                fn_blob = None
+                job.code_cached += 1
+                cache["hits"] += 1
+            else:
+                rec.code_digests[digest] = None
+                while len(rec.code_digests) > CODE_CACHE_SLOTS:
+                    rec.code_digests.popitem(last=False)
+                fn_blob = blob
+                job.code_shipped += 1
+                cache["misses"] += 1
+            entry = {"s": s, "stage": job.spec.stages[s].name,
+                     "digest": digest, "function": fn_blob}
+            # Per-stage data-plane knobs for *pool* jobs ride the job's
+            # LOAD entries instead of the host-global pool config: the
+            # node tightens its flush cadence per job (min over bound
+            # stages), the host caps per-stage in-flight items per node
+            # (_stage_room) — pinned one-shot deployments keep resolving
+            # them into the node-global window/flush as before.
+            if not job.pinned:
+                st = job.spec.stages[s]
+                if st.flush_ms is not None:
+                    entry["flush_ms"] = float(st.flush_ms)
+                if st.prefetch is not None:
+                    entry["prefetch"] = int(st.prefetch)
+            entries.append(entry)
+        return entries
+
+    def _send_load(self, rec: NodeRecord, job: JobState | None) -> None:
+        """Ship a deployment (pool config and/or one job's stages) to one
+        node from a dedicated sender thread.
 
         A node booting heavy deps drains its socket only once its preloader
-        finishes; a large LOAD would therefore block a synchronous send past
-        the kernel buffer — and block the dispatcher with it, re-serializing
-        the very bootstrap the overlap parallelizes.  The payload is built
-        *here* (dispatcher thread — it touches job state); the sender thread
-        only sends, reporting back through the event queue (``("loaded",
-        node_id, ok, job_id)``) so membership stays single-writer.
+        finishes; a large LOAD (MBs of artifacts) would therefore block a
+        synchronous send past the kernel buffer — and block the dispatcher
+        with it, re-serializing the very bootstrap the overlap parallelizes.
+        The payload is built *here* (dispatcher thread — it touches job and
+        LRU state); the sender thread only sends, reporting back through
+        the event queue (``("loaded", node_id, ok, job_id)``) so membership
+        stays single-writer.
         """
-        s = self._stage_of(rec.node_id)
-        st = job.spec.stages[s]
-        digest, blob = job.stage_code[s]
-        job.code_shipped += 1
-        # Per-stage data-plane knobs resolve host-side: the node's stage may
-        # override the cluster-wide prefetch/flush values.
+        if job is not None:
+            entries = self._load_entries(rec, job)
+        else:
+            entries = []
+        # Per-stage data-plane knobs resolve host-side: a pinned node's
+        # single stage may override the cluster-wide prefetch/flush values.
         prefetch, flush_interval = self.prefetch, self.flush_interval
-        if st.prefetch is not None:
-            prefetch = st.prefetch
-        if st.flush_ms is not None:
-            flush_interval = st.flush_ms / 1000.0
-        job_id = job.job_id
+        if job is not None and job.pinned:
+            st = job.spec.stages[self._stage_of(rec.node_id)]
+            workers = st.workers_per_node
+            if st.prefetch is not None:
+                prefetch = st.prefetch
+            if st.flush_ms is not None:
+                flush_interval = st.flush_ms / 1000.0
+        else:
+            workers = self.pool_workers
+        job_id = 0 if job is None else job.job_id
         payload = {
             "node_id": rec.node_id,
-            "workers": st.workers_per_node,
+            "workers": workers,
             "heartbeat_interval": self.membership.monitor.interval_s,
             "slowdown": float(self.slowdown.get(rec.node_id, 0.0)),
+            "artifacts": self.artifacts,
             "prefetch": prefetch,
             "flush_items": self.flush_items,
             "flush_interval": flush_interval,
-            "stages": [{"s": s, "stage": st.name, "digest": digest,
-                        "function": blob}],
+            "stages": entries,
             # Peer data plane: the directory known so far (completed by the
             # post-barrier broadcast) and, per peer-routed hop, this job's
-            # routing table.
+            # routing table.  Published broadcast blocks ride along so the
+            # node starts its striped fetch during the load window.
             "peer": {"dir": self._peer_dir(),
                      "routes": self._peer_routes(job)},
         }
+        manifest = self.blocks.manifest()
+        if manifest:
+            payload["blocks"] = manifest
 
         def sender() -> None:
             try:
@@ -1236,12 +1717,12 @@ class HostLoader:
                         pass
                 else:
                     rec.jobs_loaded.add(job_id)
-                    if self._primary.peer_hops:
+                    if job is not None and job.peer_hops:
                         self._send_peer_refresh(rec)
             return
         # Died between REGISTER and LOAD: a bootstrap-time node loss,
-        # handled like any other — requeue + surface, exactly as a
-        # heartbeat-detected death.
+        # handled like any other — requeue + surface + (policy permitting)
+        # heal, exactly as a heartbeat-detected death.
         if self.membership.mark_dead(node_id) is not None:
             self._on_node_death(rec)
             self._flush_waiting()
@@ -1294,6 +1775,7 @@ class HostLoader:
         batch — never per item)."""
         self.telemetry.set_job(
             job.job_id,
+            priority=job.priority,
             stages=job.S,
             pending=[len(q) for q in job.pending],
             inflight=[len(f) for f in job.inflight],
@@ -1303,6 +1785,7 @@ class HostLoader:
             peer_forwarded=job.peer_forwarded,
             host_relay_bytes=job.host_relay_bytes,
             code_shipped=job.code_shipped,
+            code_cached=job.code_cached,
             # ended_at, not the event: terminal publishes happen just
             # before done.set() releases waiters (see _maybe_finish).
             done=job.ended_at is not None,
@@ -1360,13 +1843,16 @@ class HostLoader:
         out["nodes_alive"] = sum(1 for r in nodes if r.alive)
         out["credits_parked"] = sum(r.credits for r in nodes if r.alive)
         out["jobs_active"] = sum(1 for j in jobs if j.active)
+        out["blocks_published"] = len(self.blocks.manifest())
+        out["block_chunks_served"] = self.blocks.chunks_served
+        out["block_bytes_served"] = self.blocks.chunk_bytes_served
         return out
 
     # -- teardown -----------------------------------------------------------
 
     def _member_snapshot(self) -> list[NodeRecord]:
         """Cross-thread membership snapshot for teardown paths: the
-        dispatcher may still be inserting records (a late registration)
+        dispatcher may still be inserting records (a queued ``expect``)
         while the closing thread walks them, and dict iteration during a
         resize raises RuntimeError."""
         for _ in range(8):
@@ -1375,6 +1861,15 @@ class HostLoader:
             except RuntimeError:
                 continue
         return []
+
+    def shutdown_nodes(self) -> None:
+        """Send UT to every live node (pool teardown — they exit cleanly)."""
+        for rec in self._member_snapshot():
+            if rec.alive and rec.conn is not None:
+                try:
+                    rec.conn.send(Frame(FrameType.UT, None, APP_WIRE_CHANNEL))
+                except (OSError, ValueError):
+                    pass
 
     def close(self) -> None:
         self._stop.set()

@@ -16,6 +16,7 @@ its dispatcher loop.
 
 from __future__ import annotations
 
+import collections
 import time
 from dataclasses import dataclass, field
 from typing import Any
@@ -56,9 +57,16 @@ class NodeRecord:
     # pipelining): credits the node sent that are parked until new items
     # appear (re-dispatch) or the job terminates (answered with UT).
     credits: int = 0
-    # The job ids whose LOAD this node has acked: the host dispatches job-J
-    # work to a node only once J is in here (no work-before-code races).
+    # Multi-job service state.  ``jobs_loaded`` holds the job ids whose LOAD
+    # this node has acked — the host only dispatches job-J work to a node
+    # once J is in here (no work-before-code races).  ``code_digests`` is
+    # the host-side mirror of the node's warm code-cache LRU (digest ->
+    # None, insertion-ordered, same capacity and touch order as the node's),
+    # so the host knows which stage functions it can skip re-shipping.
     jobs_loaded: set = field(default_factory=set)
+    code_digests: collections.OrderedDict = field(
+        default_factory=collections.OrderedDict
+    )
     timing: dict[str, Any] = field(default_factory=dict)
     conn: Any = None  # FrameConnection; opaque to this module
     # Observability: when the current state was entered, and the full
@@ -67,8 +75,13 @@ class NodeRecord:
     state_changed_at: float = 0.0
     transitions: list = field(default_factory=list)
     # The FailureEvent recorded when this node was declared dead (None
-    # while alive) — the death event on the telemetry bus reads it.
+    # while alive) — the heal path reads its detection metadata.
     last_failure: Any = None
+    # Graceful retirement (pool shrink): set when the host decided to UT
+    # this node mid-run.  A retiring node is fenced from new work
+    # (``_answer`` skips it) but stays ``alive`` until its UT ack lands —
+    # its in-flight items are requeued there, not reaped as a death.
+    retiring: bool = False
     # Listening port of the node's peer data-plane server (0 = none
     # reported; the node is unreachable for peer routing / block trading
     # and routing tables simply omit it).
@@ -119,6 +132,20 @@ class Membership:
         rec.transitions.append((LAUNCHING, now))
         self.nodes[node_id] = rec
         return rec
+
+    def retract(self, node_id: str, now: float | None = None) -> bool:
+        """Withdraw a launch announcement whose launch never produced a
+        process (``launcher.launch`` raised): the record leaves LAUNCHING
+        — straight to DEAD, with no FailureEvent since there was never a
+        node to lose — so it stops counting as capacity on its way and
+        stops keeping stages eligible.  Refused (False) once the node
+        registered or otherwise left LAUNCHING."""
+        rec = self.nodes.get(node_id)
+        if rec is None or rec.state != LAUNCHING:
+            return False
+        self._transition(rec, DEAD, now)
+        rec.credits = 0
+        return True
 
     def register(self, node_id: str, address: str, *, cores: int = 1,
                  pid: int = 0, conn: Any = None, peer_port: int = 0,

@@ -15,10 +15,10 @@ Lifecycle (timed per requirement 7, split three ways):
    retries with exponential backoff inside ``--connect-timeout``: a
    remotely launched node may come up before the host is listening;
 2. *load*: receive LOAD frames — the deployment payload (work functions
-   shipped over the code-loading channel).  The first LOAD configures the
-   node (worker count, credit window, flush cadence), binds its stage
-   function and starts the workers; a LOAD without ``workers`` only
-   refreshes the peer directory.  Deserialization is
+   shipped over the code-loading channel; optional named binary artifacts
+   land in :data:`ARTIFACTS`).  The first LOAD configures the
+   node (worker count, credit window, flush cadence) and starts the
+   workers; every LOAD binds its job's stage functions.  Deserialization is
    deferred until the preloader finishes so shipped-code imports hit a warm
    module cache instead of serializing on the import lock inside the load
    window;
@@ -34,10 +34,16 @@ Lifecycle (timed per requirement 7, split three ways):
    (boot_ms, load_ms, run_ms, items) to the host in a final UT frame,
    exit 0.
 
-Work items arrive tagged with the frame-header ``job_id`` (wire v2) and
-their stage index ``s``; the worker dispatches through a ``(job_id, s) ->
-function`` table.  JOB_CLOSE drops the job's bindings (the host sends it
-when the job fails); UT terminates the node itself.
+Warm multi-job service (wire v2): the node is long-lived.  Work items
+arrive tagged with the frame-header ``job_id`` and their stage index
+``s``; the worker dispatches through a ``(job_id, s) -> function`` table
+so two jobs interleave on one worker pool.  Stage functions are addressed
+by digest and kept in a bounded LRU (:data:`CODE_CACHE_SLOTS` entries):
+when the host re-ships a stage this node already holds, the LOAD entry
+carries ``function=None`` and the node rebinds from cache — a warm
+resubmit pays neither boot nor code transfer.  JOB_CLOSE drops one job's
+bindings (the cache survives — that *is* the warmth); UT still terminates
+the node itself.
 
 This module must import without torch — a node-loader on a fresh workstation
 is a bare bootstrap; the shipped code pulls in its own dependencies when
@@ -47,6 +53,7 @@ deserialized (or earlier, via ``--preload``).
 from __future__ import annotations
 
 import argparse
+import collections
 import importlib
 import os
 import queue
@@ -61,6 +68,7 @@ from repro_torch.cluster import peer as peer_mod
 from repro_torch.cluster.netchannels import ChannelClosed
 from repro_torch.cluster.wire import (
     APP_WIRE_CHANNEL,
+    CODE_CACHE_SLOTS,
     DEFAULT_HEARTBEAT_S,
     LOAD_WIRE_CHANNEL,
     UT,
@@ -82,6 +90,11 @@ REPORT_MIN_INTERVAL_S = 0.05
 # blocks, the kernel buffers fill, and TCP throttles the upstream sender
 # instead of this node's queue growing without bound.
 PEER_INTAKE_MAX_ITEMS = 256
+
+# Named binary artifacts shipped in the LOAD payload (``artifacts=``), keyed
+# by name.  Work functions may read these (e.g. weights or a lookup table).
+ARTIFACTS: dict[str, bytes] = {}
+
 
 def connect_with_retry(host: str, port: int, timeout: float = 30.0, *,
                        max_delay: float = 2.0, jitter: float = 0.5,
@@ -165,13 +178,14 @@ def run_node(
         on_conn(conn)
 
     # The peer data plane: a listening socket siblings dial directly (stage
-    # forwarding).  Opened before REGISTER so the host can put this node in
-    # peer directories immediately; items arriving before the worker pool
-    # exists are held inside the server and drained once the handler is
-    # installed below.
+    # forwarding + block trading).  Opened before REGISTER so the host can
+    # put this node in peer directories immediately; items arriving before
+    # the worker pool exists are held inside the server and drained once
+    # the handler is installed below.
+    block_store = peer_mod.BlockStore()
     peer_dir: dict[str, tuple] = {}
     peer_client = peer_mod.PeerClient(node_id, peer_dir)
-    peer_server = peer_mod.PeerServer(node_id)
+    peer_server = peer_mod.PeerServer(node_id, block_store)
     peer_server.start()
 
     conn.send(Frame(
@@ -190,11 +204,13 @@ def run_node(
     # Node-side telemetry, piggybacked on every beat — the only node->host
     # reporting channel that exists before UT.  Mutated in place by the
     # load/worker paths (single-value updates; a torn read costs nothing).
-    report = {"boot_ms": 0.0, "load_ms": 0.0, "items": 0}
+    report = {"boot_ms": 0.0, "load_ms": 0.0, "items": 0,
+              "cache_hits": 0, "cache_misses": 0, "jobs_bound": 0}
 
     def snapshot_report() -> dict:
         rep = dict(report)
         rep.update(peer_server.counters())
+        rep.update(block_store.counters())
         rep["peer_items_sent"] = peer_client.items_sent
         rep["peer_bytes_sent"] = peer_client.bytes_sent
         return rep
@@ -229,13 +245,17 @@ def run_node(
         stop_beat.set()
         peer_server.close()
         peer_client.close()
+        block_store.release()
         conn.close()
         return {"node_id": node_id, "boot_ms": round(boot_ms, 3),
                 "load_ms": 0.0, "run_ms": 0.0, "items": 0}
 
-    # -- job state ----------------------------------------------------------
-    # fns: the worker dispatch table.
+    # -- multi-job state ----------------------------------------------------
+    # fns: the worker dispatch table; code_cache: the digest-keyed warm LRU
+    # the host mirrors (same capacity, same touch order — frames arrive in
+    # send order on one TCP stream, so both sides evict identically).
     fns: dict[tuple[int, int], Callable[[Any], Any]] = {}
+    code_cache: collections.OrderedDict = collections.OrderedDict()
     configured = False
     workers = 1
     slowdown = 0.0
@@ -247,6 +267,10 @@ def run_node(
     items_lock = threading.Lock()
     out_lock = threading.Lock()
     out_bufs: dict[int, list[dict]] = {}  # job_id -> pending results
+    # Per-job flush cadence: a pool job whose stages carry ``flush_ms=``
+    # tightens the flusher's wake interval while it is bound (min over its
+    # stages' values; the node-global flush_interval is the ceiling).
+    flush_overrides: dict[int, float] = {}
     flush_now = threading.Event()
     stop_flush = threading.Event()
 
@@ -425,7 +449,16 @@ def run_node(
 
     def flusher() -> None:
         while not stop_flush.is_set():
-            flush_now.wait(flush_interval)
+            interval = flush_interval
+            # Snapshot under out_lock: bind_stages/JOB_CLOSE resize the
+            # dict on the frame thread, and iterating a dict mid-resize
+            # raises RuntimeError — an uncaught one would kill the
+            # flusher and stall every job on this node to its deadline.
+            with out_lock:
+                overrides = list(flush_overrides.values())
+            if overrides:
+                interval = min(interval, min(overrides))
+            flush_now.wait(interval)
             flush_now.clear()
             flush()
         flush()  # drain the tail after the workers joined
@@ -483,9 +516,32 @@ def run_node(
     def bind_stages(job_id: int, plan: dict) -> None:
         bound = False
         for entry in plan.get("stages", ()):
-            fns[(job_id, int(entry["s"]))] = loads_code(entry["function"])
+            ms = entry.get("flush_ms")
+            if ms is not None:
+                iv = max(0.0005, float(ms) / 1000.0)
+                with out_lock:  # the flusher snapshots under the same lock
+                    prior = flush_overrides.get(job_id)
+                    flush_overrides[job_id] = (iv if prior is None
+                                               else min(prior, iv))
+            digest = entry["digest"]
+            blob = entry["function"]
+            if blob is not None:
+                fn = loads_code(blob)
+                code_cache[digest] = fn
+                while len(code_cache) > CODE_CACHE_SLOTS:
+                    code_cache.popitem(last=False)
+                report["cache_misses"] += 1
+            else:
+                # The host's LRU mirror says we still hold it — if the two
+                # ever diverged this KeyError kills the node, the host reaps
+                # it and redispatches: degraded, not wrong.
+                fn = code_cache[digest]
+                code_cache.move_to_end(digest)
+                report["cache_hits"] += 1
+            fns[(job_id, int(entry["s"]))] = fn
             bound = True
         if bound:
+            report["jobs_bound"] += 1
             # Drain peer-delivered items that raced ahead of this binding.
             with hold_lock:
                 held = peer_hold.pop(job_id, [])
@@ -494,6 +550,49 @@ def run_node(
                         work_q.put((job_id, item))
                     else:
                         peer_hold.setdefault(job_id, []).append(item)
+
+    fetching_blocks: set[tuple] = set()
+
+    def fetch_blocks_async(manifest: list[dict]) -> None:
+        # The manifest rides every LOAD (a publish broadcast, then each
+        # job ship): dedup in-flight fetches or each repeat would re-stripe
+        # the host for chunks already on their way.
+        with hold_lock:
+            manifest = [m for m in manifest
+                        if (m.get("name"), m.get("digest"))
+                        not in fetching_blocks]
+            if not manifest:
+                return
+            fetching_blocks.update(
+                (m.get("name"), m.get("digest")) for m in manifest)
+
+        def host_request(name: str, chunk: int) -> None:
+            try:
+                conn.send(Frame(FrameType.BLOCK_REQUEST,
+                                {"name": name, "chunk": chunk},
+                                LOAD_WIRE_CHANNEL))
+            except OSError:
+                pass
+
+        def runner() -> None:
+            try:
+                peer_mod.fetch_blocks(manifest, store=block_store,
+                                      client=peer_client,
+                                      host_request=host_request)
+            except Exception:
+                pass  # a failed fetch surfaces as get_block() timing out
+            finally:
+                # A block that failed to assemble may be retried by the
+                # next LOAD carrying it.
+                with hold_lock:
+                    for m in manifest:
+                        if not block_store.has(m.get("name")):
+                            fetching_blocks.discard(
+                                (m.get("name"), m.get("digest")))
+            send_report(force=True)
+
+        threading.Thread(target=runner, name="nl-block-fetch",
+                         daemon=True).start()
 
     def apply_load(job_id: int, plan: dict) -> None:
         nonlocal configured, workers, slowdown, window
@@ -505,8 +604,11 @@ def run_node(
             routes = pd.get("routes")
             if routes:
                 route_tables[job_id] = peer_mod.RouteTable(routes)
+        blocks = plan.get("blocks")
+        if blocks:
+            fetch_blocks_async(blocks)
         if "workers" not in plan:
-            return  # a directory refresh, not a deployment
+            return  # a directory/blocks refresh, not a deployment
         if not configured:
             configured = True
             workers = int(plan["workers"])
@@ -522,6 +624,8 @@ def run_node(
             window = workers + prefetch
             flush_items = max(1, int(plan.get("flush_items", 8)))
             flush_interval = float(plan.get("flush_interval", 0.005))
+            ARTIFACTS.clear()
+            ARTIFACTS.update(plan.get("artifacts") or {})
             bind_stages(job_id, plan)
             for i in range(workers):
                 t = threading.Thread(target=worker, name=f"nl-worker{i}",
@@ -580,11 +684,20 @@ def run_node(
                     work_q.put((frame.job_id, item))
             elif frame.ftype is FrameType.WORK:  # legacy single form
                 work_q.put((frame.job_id, frame.payload))
+            elif frame.ftype is FrameType.BLOCK_CHUNK:
+                # A host reply to one of our striped BLOCK_REQUESTs.
+                p = frame.payload or {}
+                block_store.add_chunk(p.get("name"),
+                                      int(p.get("chunk", 0)), p.get("data"))
             elif frame.ftype is FrameType.JOB_CLOSE:
-                # The job failed host-side: drop its dispatch bindings.
+                # The job is done (or failed) host-side: drop its dispatch
+                # bindings.  The code cache is untouched — keeping it hot
+                # is what makes the next submit of the same pipeline warm.
                 jid = frame.job_id
                 for key in [k for k in fns if k[0] == jid]:
                     del fns[key]
+                with out_lock:  # the flusher snapshots under the same lock
+                    flush_overrides.pop(jid, None)
                 route_tables.pop(jid, None)
                 with hold_lock:
                     dropped = peer_hold.pop(jid, None)
@@ -610,6 +723,10 @@ def run_node(
     stop_beat.set()
     peer_server.close()
     peer_client.close()
+    # Release resident broadcast blocks: the process-global read mirror is
+    # refcounted per holding store, and an exited node must not pin its
+    # blocks there forever (in-process pools share the mirror).
+    block_store.release()
 
     record = {
         "node_id": node_id,

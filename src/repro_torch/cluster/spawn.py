@@ -5,10 +5,10 @@ The runnable returned by ``build_application(spec, backend="cluster")``.
 :class:`~repro_torch.cluster.deploy.base.Launcher` (``repro_torch.cluster.deploy``):
 subprocesses on this machine (:class:`LocalLauncher`, the default — the
 paper's §6.1 "test on one host first" mode with true process isolation),
-or threads for fast launcher-logic tests (:class:`InProcessLauncher`).
-The JAX package's ssh fan-out (``hosts=``) and fault injection
-(``chaos=``) are not ported yet and raise :class:`NotImplementedError`.
-This module does not know what a ``subprocess.Popen`` is.
+ssh fan-out to idle workstations (:class:`SSHLauncher`, via ``launcher=``
+or the ``hosts=`` shorthand), or threads for fast launcher-logic tests
+(:class:`InProcessLauncher`).  This module does not know what a
+``subprocess.Popen`` is.
 
 What remains here is lifecycle and policy: bootstrap the HostLoader, fan
 the launches out, relaunch silent nodes when the host's placement policy
@@ -57,6 +57,7 @@ class ProcessClusterApplication:
     register_timeout: float = 30.0
     shutdown_grace: float = 10.0
     slowdown: dict[str, float] = field(default_factory=dict)
+    artifacts: dict[str, bytes] = field(default_factory=dict)
     # Data-plane knobs (see ARCHITECTURE.md "Data plane"): modules each
     # node pre-imports during boot; extra items beyond `workers` the node
     # keeps buffered (None = one per worker); and the node-side result
@@ -68,9 +69,10 @@ class ProcessClusterApplication:
     # -- deployment layer ---------------------------------------------------
     # Which machines run node-loaders and what happens when one never shows
     # up.  ``launcher=None`` defaults to LocalLauncher (subprocesses here);
-    # ``hosts=["ws01", ...]`` (ssh fan-out) is not ported yet.
-    # ``bind_host`` is the load-network bind address — keep the loopback
-    # default for local runs.
+    # ``hosts=["ws01", ...]`` is shorthand for an SSHLauncher over those
+    # machines.  ``bind_host`` is the load-network bind address — keep the
+    # loopback default for local runs, use "0.0.0.0" (plus an
+    # SSHLauncher(connect_host=<reachable ip>)) to span machines.
     launcher: Launcher | None = None
     hosts: Sequence[str] | None = None
     bind_host: str = "127.0.0.1"
@@ -78,13 +80,22 @@ class ProcessClusterApplication:
     max_respawns: int = 0
     respawn_after: float | None = None
     allow_late_join: bool = True
-    # Fault injection (the JAX package's chaos.FaultPlan) is not ported yet.
+    # Mid-run healing budget: relaunch nodes that die *during* the run
+    # (0 = shrink to survivors) — see PlacementPolicy.max_heals.
+    max_heals: int = 0
+    # Optional fault injection: a repro_torch.cluster.chaos.FaultPlan armed when
+    # the launches fan out (one-shot runs test the full bootstrap+run
+    # window, unlike the service which arms after pool-ready).
     chaos: Any = None
+    chaos_controller: Any = field(default=None, init=False)
     # -- observability ------------------------------------------------------
     # ``http_port``: None = no status endpoint, 0 = ephemeral (read
     # ``http_url`` after start), served on the loopback address.
+    # ``trace_path`` appends the run's lifecycle events as JSONL for
+    # offline replay.
     http_port: int | None = None
-    telemetry: Telemetry = field(default_factory=Telemetry, init=False)
+    trace_path: str | None = None
+    telemetry: Telemetry | None = field(default=None, init=False)
     http_server: TelemetryServer | None = field(default=None, init=False)
 
     host_loader: HostLoader | None = None
@@ -94,13 +105,6 @@ class ProcessClusterApplication:
     _ran: bool = False
 
     def __post_init__(self) -> None:
-        for option, module in (("hosts", "the ssh launcher (cluster/deploy/ssh.py)"),
-                               ("chaos", "the fault injector (cluster/chaos.py)")):
-            if getattr(self, option) is not None:
-                raise NotImplementedError(
-                    f"{option}= needs {module}, which is not ported yet "
-                    "(ROADMAP.md, queue 1 item 6b: \"Process transport: "
-                    "service, gateway, chaos, ssh\")")
         if hasattr(self.spec, "as_pipeline"):
             self.spec = self.spec.as_pipeline()
 
@@ -136,9 +140,33 @@ class ProcessClusterApplication:
             raise
 
     def _start_inner(self) -> None:
+        if self.launcher is not None and self.hosts is not None:
+            raise TypeError("pass either launcher= or hosts=, not both")
         if self.launcher is None:
-            self.launcher = LocalLauncher(preload=tuple(self.preload))
+            if self.hosts is not None:
+                from repro_torch.cluster.deploy.ssh import SSHLauncher
+
+                self.launcher = SSHLauncher(self.hosts,
+                                            preload=tuple(self.preload))
+            else:
+                self.launcher = LocalLauncher(preload=tuple(self.preload))
         node_ids = self.node_ids()
+        if self.telemetry is None:
+            self.telemetry = Telemetry(trace_path=self.trace_path)
+        conn_wrapper = None
+        if self.chaos is not None and self.chaos_controller is None:
+            from repro_torch.cluster.chaos import ChaosController
+
+            self.chaos_controller = ChaosController(
+                self.chaos,
+                kill=self.kill_node,
+                telemetry=self.telemetry,
+                items_fn=lambda: (self.host_loader.stats.items_total
+                                  if self.host_loader is not None else 0),
+            )
+            self.telemetry.set_sampler("chaos", self.chaos_controller.sample)
+        if self.chaos_controller is not None:
+            conn_wrapper = self.chaos_controller.wrap_connection
         self.host_loader = HostLoader(
             self.spec,
             self.timing,
@@ -151,6 +179,7 @@ class ProcessClusterApplication:
             register_timeout=self.register_timeout,
             job_timeout=self.job_timeout,
             slowdown=self.slowdown,
+            artifacts=self.artifacts,
             prefetch=self.prefetch,
             flush_items=self.flush_items,
             flush_interval=self.flush_interval,
@@ -159,20 +188,25 @@ class ProcessClusterApplication:
                 max_respawns=self.max_respawns,
                 respawn_after=self.respawn_after,
                 allow_late_join=self.allow_late_join,
+                max_heals=self.max_heals,
             ),
             expected_nodes=node_ids,
             relaunch=self._relaunch,
             telemetry=self.telemetry,
+            conn_wrapper=conn_wrapper,
         )
         if self.http_port is not None and self.http_server is None:
             self.http_server = TelemetryServer(self.telemetry,
                                                port=self.http_port)
         self.host_loader.start()
         # The bind address goes through verbatim: each launcher knows how to
-        # resolve an unroutable "0.0.0.0" (loopback for local launchers).
+        # resolve an unroutable "0.0.0.0" (loopback for local launchers; an
+        # SSHLauncher keeps its explicitly configured connect_host).
         self.launcher.prepare(self.bind_host, self.host_loader.port)
         for node_id in node_ids:
             self.handles[node_id] = self.launcher.launch(node_id)
+        if self.chaos_controller is not None:
+            self.chaos_controller.arm()
 
     def _relaunch(self, old_node_id: str, new_node_id: str) -> bool:
         """Placement-policy callback: a launch never registered — retire it
@@ -227,6 +261,9 @@ class ProcessClusterApplication:
     # -- teardown -----------------------------------------------------------
 
     def _shutdown(self) -> None:
+        # Chaos first: no new faults may fire into a cluster being torn down.
+        if self.chaos_controller is not None:
+            self.chaos_controller.disarm()
         # Close the host's sockets first: surviving node-loaders blocked on
         # the application channel see ChannelClosed and exit promptly
         # (milliseconds, exit 0) instead of burning the grace period.
@@ -246,7 +283,8 @@ class ProcessClusterApplication:
             self.launcher.close()
         if self.http_server is not None:
             self.http_server.close()
-        self.telemetry.close()
+        if self.telemetry is not None:
+            self.telemetry.close()
 
     @property
     def http_url(self) -> str | None:
@@ -256,6 +294,8 @@ class ProcessClusterApplication:
     def metrics_snapshot(self) -> dict[str, Any]:
         """The ``GET /metrics`` JSON as a dict (usable after shutdown too —
         the bus outlives the sockets)."""
+        if self.telemetry is None:
+            self.telemetry = Telemetry(trace_path=self.trace_path)
         return self.telemetry.snapshot()
 
     def orphaned(self) -> list[str]:

@@ -12,7 +12,7 @@ the rest of the node-loader bootstrap path):
   dashboard served at ``GET /``.
 
 See ARCHITECTURE.md "Observability" for how the host loader, membership
-layer and node heartbeats feed it.
+layer, node heartbeats, and service scheduler feed it.
 """
 
 from repro_torch.cluster.telemetry.http import TelemetryServer  # noqa: F401

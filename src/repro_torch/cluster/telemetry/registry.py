@@ -2,13 +2,13 @@
 
 Everything the cluster already knows while a run is live — per-job farm
 gauges, per-node wire counters, membership transitions, node-reported
-boot/load phases — was invisible outside the process.
+boot/load phases and warm-cache hits — was invisible outside the process.
 This module is the one place those signals meet:
 
 * :class:`Telemetry` is a thread-safe **event bus** (a bounded ring of
   timestamped, sequence-numbered lifecycle events) plus a **metrics
   registry** (per-job gauges, per-node fields, cluster-level counters).
-  The dispatcher and the membership layer *push* into it
+  The dispatcher, membership layer, and service scheduler *push* into it
   at state changes; fast-moving values the producers already maintain
   (wire byte counters, parked credits) are *pulled* at snapshot time
   through registered sampler callbacks, so the hot paths pay nothing for
@@ -243,11 +243,10 @@ class Telemetry:
             hist.observe(float(value))
 
     def set_sampler(self, name: str, fn: Callable[[], dict]) -> None:
-        """Register a pull-side sampler (``"nodes"``, ``"cluster"`` or
-        ``"timing"``) — invoked on every snapshot, on the reader's thread.
-        (The JAX package's fault injector and job gateway add sections of
-        their own; neither is ported yet.)"""
-        if name not in ("nodes", "cluster", "timing"):
+        """Register a pull-side sampler (``"nodes"``, ``"cluster"``,
+        ``"timing"``, ``"chaos"`` or ``"gateway"``) — invoked on every
+        snapshot, on the reader's thread."""
+        if name not in ("nodes", "cluster", "timing", "chaos", "gateway"):
             raise ValueError(f"unknown sampler section {name!r}")
         self._samplers[name] = fn
 
@@ -273,6 +272,8 @@ class Telemetry:
         sampled_nodes = self._sample("nodes")
         sampled_cluster = self._sample("cluster")
         timing = self._sample("timing")
+        chaos = self._sample("chaos")
+        gateway = self._sample("gateway")
         now = self._clock()
         with self._lock:
             jobs = {str(jid): dict(g) for jid, g in self._jobs.items()}
@@ -304,6 +305,10 @@ class Telemetry:
             snap["histograms"] = histograms
         if timing:
             snap["timing"] = timing
+        if chaos:
+            snap["chaos"] = chaos
+        if gateway:
+            snap["gateway"] = gateway
         return snap
 
     def prometheus(self) -> str:
@@ -313,6 +318,12 @@ class Telemetry:
 
         * ``repro_uptime_seconds``
         * ``repro_cluster_<counter>`` — cluster section, numeric entries;
+        * ``repro_chaos_<field>`` — fault-injection section numerics
+          (present only when a chaos controller is armed);
+        * ``repro_gateway_<field>`` — job-gateway section numerics, with
+          the per-tenant breakdown flattened as
+          ``repro_gateway_tenant_<field>{tenant=...}`` and the ticket
+          ledger as ``repro_gateway_tickets{state=...}``;
         * ``repro_job_<gauge>{job="1"}`` — per-job numerics; per-stage
           list gauges add a ``stage`` label per element;
         * ``repro_node_<field>{node="node0"}`` — per-node numerics, with
@@ -338,6 +349,16 @@ class Telemetry:
         sample("repro_uptime_seconds", {}, snap["uptime_s"])
         for key, val in snap["cluster"].items():
             sample(f"repro_cluster_{key}", {}, val)
+        for key, val in (snap.get("chaos") or {}).items():
+            sample(f"repro_chaos_{key}", {}, val)  # numerics only
+        gateway = dict(snap.get("gateway") or {})
+        for state, n in (gateway.pop("tickets", None) or {}).items():
+            sample("repro_gateway_tickets", {"state": state}, n)
+        for tenant, fields in (gateway.pop("tenants", None) or {}).items():
+            for key, val in (fields or {}).items():
+                sample(f"repro_gateway_tenant_{key}", {"tenant": tenant}, val)
+        for key, val in gateway.items():
+            sample(f"repro_gateway_{key}", {}, val)  # numerics only
         for jid, gauges in snap["jobs"].items():
             for key, val in gauges.items():
                 if isinstance(val, (list, tuple)):

@@ -17,11 +17,12 @@ one-object-per-frame events; the pipelined data plane coalesces them into
 WORK_BATCH/RESULT_BATCH (see ARCHITECTURE.md "Data plane") but both sides
 still accept the single-object forms.
 
-``job_id`` (wire version 2) names the job every frame belongs to (the
-JAX package's warm service multiplexes many jobs on one connection with
-it; a run of this package has one job).  ``job_id == 0`` means "no job"
-(bootstrap frames: REGISTER, HEARTBEAT, a peer-directory LOAD, the final
-UT).
+``job_id`` (wire version 2) is the multiplexing key of the cluster
+*service*: a warm node pool outlives any one job, so every frame names the
+job it belongs to — WORK_BATCH/RESULT_BATCH items of two concurrent jobs
+interleave on one connection and the host keeps exactly-once state per
+job.  ``job_id == 0`` means "no job" (bootstrap / pool-control frames:
+REGISTER, HEARTBEAT, the pool-config LOAD, the final UT).
 
 Payload encoding is a three-codec scheme:
 
@@ -70,6 +71,13 @@ VERSION = 2  # v2 added the job_id header field (multi-job multiplexing)
 LOAD_WIRE_CHANNEL = 1  # paper §6: the load network uses channel number 1
 APP_WIRE_CHANNEL = 2  # the application network runs on a separate channel
 
+# Warm-code cache slots per node: deserialized stage functions keyed by
+# payload digest.  The host mirrors each node's LRU with the same capacity
+# and the same touch order (frames arrive in send order on one TCP stream),
+# so it knows exactly which digests a node still holds and can skip
+# re-shipping code on a warm resubmit.
+CODE_CACHE_SLOTS = 32
+
 # One liveness default shared by the node beacon (pre- and post-LOAD) and the
 # host's HeartbeatMonitor threshold, so neither side beats at a rate the
 # other does not expect.
@@ -77,6 +85,17 @@ DEFAULT_HEARTBEAT_S = 0.2
 
 # Guards against a corrupt length field consuming the heap.
 MAX_FRAME_BYTES = 512 * 2**20
+
+# Broadcast blocks travel as fixed-size chunks so N nodes can stripe their
+# fetches (each asks the host for a disjoint subset, then peers trade the
+# rest).  1 MiB keeps any single BLOCK_CHUNK frame well under the socket
+# buffer while amortising the per-frame header.
+BLOCK_CHUNK_BYTES = 1 << 20
+
+# Complete blocks an individual node keeps resident, LRU-evicted like the
+# warm code cache: enough for a weights blob plus a few lookup tables, small
+# enough that an immortal pool node cannot grow without bound.
+BLOCK_CACHE_SLOTS = 8
 
 _HEADER = struct.Struct("!4sBBBBII")
 
@@ -136,7 +155,7 @@ class Frame:
     ftype: FrameType
     payload: Any = None
     channel: int = APP_WIRE_CHANNEL
-    job_id: int = 0  # 0 = not job-scoped (bootstrap frames)
+    job_id: int = 0  # 0 = not job-scoped (bootstrap / pool control)
 
 
 # ---------------------------------------------------------------------------

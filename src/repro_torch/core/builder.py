@@ -13,8 +13,9 @@ with no user intervention:
   runnable network (``runtime.local``) whose topology is exactly Figure 2 and
   whose protocol is the one model-checked by ``core.verify``.
 
-This is the application half of the JAX package's builder.  Its SPMD half
-(``build_step``) and the ``"service"`` backend are not ported yet.
+This is the application half of the JAX package's builder, with its
+``"threads"``, ``"cluster"`` and ``"service"`` backends.  Its SPMD half
+(``build_step``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -209,16 +210,30 @@ class ClusterBuilder:
         registration barrier is policy-driven: ``min_nodes=`` admits a
         degraded start with survivors, ``max_respawns=`` relaunches a node
         that never registers, late joiners are shipped LOAD + credits
-        mid-run (``allow_late_join``).  Work functions cross to the nodes
-        pickled (by value through cloudpickle where it is installed, else by
-        reference), and ndarray payloads arrive as *read-only* views.
-        ``http_port=`` turns on the live status endpoint
-        (``repro_torch.cluster.telemetry``).  ``hosts=`` (ssh fan-out) and
-        ``chaos=`` (fault injection) are not ported yet and raise
-        :class:`NotImplementedError`.
+        mid-run (``allow_late_join``).  ``hosts=["ws01", ...]`` is shorthand
+        for ssh fan-out over those machines
+        (:class:`~repro_torch.cluster.deploy.ssh.SSHLauncher`).  Robustness
+        knobs: ``max_heals=`` budgets mid-run pool healing (a node dying
+        during the run is relaunched, its code re-shipped) and ``chaos=``
+        arms a :class:`repro_torch.cluster.chaos.FaultPlan` of injected
+        faults against the live transport.  Work functions cross to the
+        nodes pickled (by value through cloudpickle where it is installed,
+        else by reference), and ndarray payloads arrive as *read-only*
+        views.
 
-        ``"service"`` (the persistent warm node pool) is not ported yet and
-        raises :class:`NotImplementedError`.
+        ``"service"`` runs the same process transport over a persistent
+        warm node pool (:class:`repro_torch.cluster.service.ClusterService`).
+        Pass ``service=`` to run this application as one job of a
+        caller-owned pool that stays up (repeat builds of the same spec
+        become warm resubmits: no boot, no code shipped); without it an
+        ephemeral pool sized from the spec boots for this run and closes
+        after.  Remaining ``backend_options`` configure the pool, including
+        ``max_heals=`` and ``chaos=``.
+
+        Observability (``"cluster"`` and ``"service"``): ``trace_path=``
+        appends every lifecycle event as one JSON line, and ``http_port=``
+        turns on the live status endpoint
+        (``repro_torch.cluster.telemetry``).
         """
         pipe = spec.as_pipeline() if hasattr(spec, "as_pipeline") else spec
         pipe.validate()
@@ -250,11 +265,16 @@ class ClusterBuilder:
                 spec=pipe, plan=plan, timing=self.timing, **backend_options
             )
         if backend == "service":
-            raise NotImplementedError(
-                "backend 'service' needs the warm node pool "
-                "(cluster/service.py), which is not ported yet (ROADMAP.md, "
-                "queue 1 item 6b: \"Process transport: service, gateway, "
-                "chaos, ssh\")"
+            from repro_torch.cluster.service import ServiceClusterApplication
+
+            plan = self.deployment_plan(
+                pipe,
+                hosts=backend_options.get("hosts"),
+                bind_host=backend_options.get("bind_host", "127.0.0.1"),
+                launcher=backend_options.get("launcher"),
+            )
+            return ServiceClusterApplication(
+                spec=pipe, plan=plan, timing=self.timing, **backend_options
             )
         raise ValueError(
             f"unknown backend {backend!r}; expected 'threads', 'cluster', "

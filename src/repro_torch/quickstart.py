@@ -8,7 +8,9 @@ timing (requirement 7).  Every work item renders and sums one line in one
 launch of the CUDA escape-time kernel: in a worker thread of this process
 on the ``threads`` backend, in a worker of a node-loader subprocess on the
 ``cluster`` backend (paper section 4: the host ships the work function over
-TCP and every node opens its own CUDA context).
+TCP and every node opens its own CUDA context), and in the same on the
+``service`` backend, whose pool of node-loaders is booted once and takes
+the job as a submission (a warm pool a caller may keep for more jobs).
 
 Part 2 builds the same workload as a *two-stage pipeline* with the fluent
 Python API — Mandelbrot lines rendered by stage 1, reduced per line by
@@ -17,6 +19,7 @@ the paper's network as its one-stage special case.
 
 Run:  PYTHONPATH=src python -m repro_torch.quickstart
       PYTHONPATH=src python -m repro_torch.quickstart cluster  # subprocesses
+      PYTHONPATH=src python -m repro_torch.quickstart service  # a node pool
       PYTHONPATH=src python -m repro_torch.quickstart --device cpu \\
           --width 300 --lines 32 --iters 100      # plain PyTorch, no card
 
@@ -177,16 +180,18 @@ def _counts(result) -> str:
 
 def backend_options(backend: str) -> dict:
     """What ``build_application`` is given for ``backend`` beside the spec."""
-    return {"preload": NODE_PRELOAD} if backend == "cluster" else {}
+    return ({"preload": NODE_PRELOAD} if backend in ("cluster", "service")
+            else {})
 
 
 def main(argv=None) -> tuple[dict, dict]:
     """Run both parts; returns the two results."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("backend", nargs="?", default="threads",
-                    choices=("threads", "cluster"),
-                    help="threads in this process, or node-loader "
-                         "subprocesses over TCP")
+                    choices=("threads", "cluster", "service"),
+                    help="threads in this process, node-loader "
+                         "subprocesses over TCP, or a warm pool of them "
+                         "booted for this run")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the plain "
                          "PyTorch version)")

@@ -333,16 +333,23 @@ def test_work_function_error_propagates(pkg):
 
 
 @pytest.mark.parametrize("backend", ["cluster", "service"])
-def test_process_backends_are_not_ported_yet(backend):
+def test_process_backends_are_not_ported_yet(backend, jax_qs):
     """The warm node pool (``backend="service"``) and the cluster backend's
-    ssh fan-out (``hosts=``) wait for a later slice; the cluster backend
-    itself runs (``tests/test_torch_cluster.py``)."""
-    options = {"hosts": ["ws01"]} if backend == "cluster" else {}
-    with pytest.raises(NotImplementedError, match="Process transport") as exc:
-        port_builder.ClusterBuilder().build_application(
-            _port_spec(), backend=backend, **options)
-    module = "deploy/ssh.py" if backend == "cluster" else "cluster/service.py"
-    assert module in str(exc.value)
+    ssh fan-out (``hosts=``), once left for a later slice, build as the JAX
+    package's do: the same application class over the same deployment
+    plan (built, not started; ``tests/test_torch_service.py`` and
+    ``tests/test_torch_deploy.py`` run them)."""
+    options = {"hosts": ["ws01", "ws02"]} if backend == "cluster" else {}
+    jax_app = jax_builder.ClusterBuilder().build_application(
+        _jax_spec(jax_qs), backend=backend, **options)
+    port_app = port_builder.ClusterBuilder().build_application(
+        _port_spec(), backend=backend, **options)
+    assert type(port_app).__name__ == type(jax_app).__name__
+    assert port_app.plan.describe() == jax_app.plan.describe()
+    if backend == "cluster":
+        assert [n.address for n in port_app.plan.nodes] == \
+            [n.address for n in jax_app.plan.nodes] == \
+            ["ws01:2000/1", "ws02:2000/1"]
 
 
 @pytest.mark.parametrize("backend,options,exc", [

@@ -52,6 +52,10 @@ from repro_torch.runtime.failures import HeartbeatMonitor, WorkFunctionError
 ROOT = Path(__file__).resolve().parents[1]
 # Fast liveness settings for tests (death detected within ~0.4s).
 FAST = dict(heartbeat_interval=0.1, heartbeat_misses=4)
+# Liveness for a case that asserts what kind of failure a job ends with, not
+# that a death is detected: 10 s of silence, so a node a loaded machine holds
+# off the interpreter is never declared dead before its error arrives.
+SLACK = dict(heartbeat_interval=0.5, heartbeat_misses=20)
 # The JAX quickstart's instance and its four counts (points, white, black,
 # total iterations) on either of its backends.
 WIDTH, LINES, ITERS = 300, 32, 100
@@ -264,13 +268,23 @@ def test_paper_job_on_subprocesses_equals_jax_through_plain_pickle(
     work that can hold a node's heartbeat thread off the interpreter for
     seconds, so the liveness settings allow 30 s of silence (a death would
     show as a node with no items or a job error, never as wrong counts).
+
+    A node's preload (its import of torch) can end seconds after the
+    other's, and 32 plain lines take well under a second, so the node
+    loaded first could drain the job alone.  Each item therefore holds its
+    worker for ``per_item_s`` and a node holds at most one item per worker
+    (``prefetch=0``): items stay queued for ``(LINES - workers) *
+    per_item_s / workers`` = 10.5 s after the first node starts, so both
+    nodes get items unless their preloads end more than 10.5 s apart.
     """
     monkeypatch.setattr(port_wire, "_pickler", pickle)
+    per_item_s = 1.5
     builder = ClusterBuilder()
     app = builder.build_application(
         port_qs.mandelbrot_spec(WIDTH, LINES, ITERS, device="cpu"),
         backend="cluster", job_timeout=120.0, register_timeout=120.0,
-        heartbeat_interval=0.5, heartbeat_misses=60,
+        heartbeat_interval=0.5, heartbeat_misses=60, prefetch=0,
+        slowdown={"node0": per_item_s, "node1": per_item_s},
         **port_qs.backend_options("cluster"))
     r = app.run()
     assert (r["points"], r["white"], r["black"], r["total_iters"]) == \
@@ -356,7 +370,7 @@ def test_node_without_a_card_fails_the_job_instead_of_using_the_cpu(
         work_function=port_qs.Calculate(WIDTH, ITERS, "cuda"),
         result_details=ResultDetails(name="c", init=lambda: 0,
                                      collect=lambda a, x: a + x["points"]))
-    app = _threads_cluster(spec)
+    app = _threads_cluster(spec, **SLACK)
     runner = app.run_async()
     runner.join(timeout=60)
     assert not runner.is_alive()
@@ -499,11 +513,23 @@ def test_node_loader_cli(args, code, text):
 
 
 def test_chaos_option_is_not_ported_yet():
-    """Fault injection waits for a later slice (as do ssh fan-out and the
-    service backend, ``test_torch_builder.py``)."""
-    with pytest.raises(NotImplementedError, match="chaos.py"):
-        ClusterBuilder().build_application(
-            _spec(1, 1, 1, abs), backend="cluster", chaos=object())
+    """``chaos=`` on the cluster backend, once left for a later slice, arms
+    its fault plan over the one-shot run: the node it kills mid-job is
+    reaped, its items are requeued and the result stays exact
+    (``tests/test_torch_chaos.py`` holds the fault injector's own cases)."""
+    from repro_torch.cluster.chaos import Fault, FaultPlan
+
+    def work(x):
+        time.sleep(0.01)
+        return 3 * x
+
+    plan = FaultPlan([Fault("kill_node", node="node1", after_items=5)])
+    app = _threads_cluster(_spec(2, 1, 40, work), chaos=plan)
+    assert app.run() == sum(3 * i for i in range(40))
+    assert app.chaos_controller.injected == 1
+    assert app.host_loader.stats.deaths_detected == 1
+    assert app.host_loader.stats.items_total == 40
+    assert app.orphaned() == []
 
 
 def test_node_loader_bootstrap_imports_no_torch():

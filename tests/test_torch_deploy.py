@@ -1,30 +1,44 @@
 """The port's deployment layer (``repro_torch.cluster.deploy``) and the
 host's placement policy, on localhost sockets and the CPU.
 
-Mirrors the tests of ``tests/test_deploy.py`` that do not need ssh:
-membership states, policy validation, the node-loader's connect retry, and
-the policy end to end — degraded start (``min_nodes``), respawn of a silent
-launch (``max_respawns``, ``respawn_after``), late join mid-run (an
-announced straggler, and a stranger under both settings of
-``allow_late_join``), no
+Mirrors the tests of ``tests/test_deploy.py``: membership states, policy
+validation, the node-loader's connect retry, and the policy end to end —
+degraded start (``min_nodes``), respawn of a silent launch
+(``max_respawns``, ``respawn_after``), late join mid-run (an announced
+straggler, and a stranger under both settings of ``allow_late_join``), no
 spurious respawn behind a slow ``prepare``, the strict barrier, teardown
-after a fan-out that fails midway, and ``LocalLauncher`` as the default.
-The policy runs its node-loaders as threads (``InProcessLauncher``) over
-the same TCP protocol.  The ssh launcher is not ported yet
-(``test_torch_builder.py`` checks that ``hosts=`` says so).
+after a fan-out that fails midway, ``launcher=`` and ``hosts=`` exclusive,
+and ``LocalLauncher`` as the default.  The policy runs its node-loaders as
+threads (``InProcessLauncher``) over the same TCP protocol.
+
+The ``SSHLauncher`` cases run through a stub ``ssh`` executable that drops
+the host name and runs the remote command here, so the whole fan-out path
+(command assembly, env export, tar code sync, handle lifecycle, logs) runs
+with real node-loader subprocesses; their results are held against the
+same job on the JAX package's threads backend.  One case the port adds:
+the ssh node env is ``torch_node_env``'s, pinning no platform and naming
+the remote tree's ``src``.
 """
 
 import socket
+import stat
+import sys
 import threading
 import time
 
 import pytest
 
+from repro.cluster.deploy.ssh import SSHLauncher as JaxSSHLauncher
+from repro.core import builder as jax_builder
+from repro.core import dsl as jax_dsl
+from repro.core import processes as jax_proc
 from repro_torch.cluster.deploy import (
     InProcessLauncher,
     LocalLauncher,
     PlacementPolicy,
+    SSHLauncher,
 )
+from repro_torch.cluster.deploy.local import SRC_DIR, torch_node_env
 from repro_torch.cluster.deploy.base import NodeHandle
 from repro_torch.cluster.membership import (
     DONE,
@@ -41,6 +55,9 @@ from repro_torch.runtime.failures import HeartbeatMonitor
 
 # Fast liveness settings for tests (death detected within ~0.4s).
 FAST = dict(heartbeat_interval=0.1, heartbeat_misses=4)
+# The ssh cases start real node-loader subprocesses and assert results, not
+# deaths: 10 s of heartbeat silence, so a loaded machine cannot fake one.
+SLACK = dict(heartbeat_interval=0.5, heartbeat_misses=20)
 
 
 def _range_emit(n):
@@ -223,10 +240,20 @@ def test_degraded_start_admits_job_with_min_nodes():
 
 def test_silent_node_is_respawned_and_job_runs_at_full_strength():
     """A node that never registers is relaunched (up to max_respawns): the
-    job starts at full strength with the replacement doing real work."""
+    job starts at full strength with the replacement doing real work.
+
+    An item takes 0.1 s, so node0 alone would need 4 s for the job: the
+    replacement gets items unless its LOAD is acked that much later than
+    node0's (instant items could all go to node0 first on a loaded
+    machine)."""
+
+    def work(x):
+        time.sleep(0.1)
+        return 3 * x
+
     launcher = FlakyLauncher(drop_first=["node1"], connect_timeout=5.0)
     app = ClusterBuilder().build_application(
-        _spec(2, 1, 40, lambda x: 3 * x), backend="cluster",
+        _spec(2, 1, 40, work), backend="cluster",
         launcher=launcher, max_respawns=1, respawn_after=0.3,
         register_timeout=10.0, job_timeout=60.0, **FAST,
     )
@@ -245,13 +272,15 @@ def test_silent_node_is_respawned_and_job_runs_at_full_strength():
 
 def test_late_join_mid_run_gets_load_and_credits_exactly_once():
     """A node registering after the run started is admitted, shipped LOAD,
-    and answered credits immediately; results stay exactly-once."""
+    and answered credits immediately; results stay exactly-once.  An item
+    takes 0.1 s, so items are still queued 3 s after node1's 0.9 s delay
+    ends, and node1 gets some however late a loaded machine starts it."""
     n_items = 40
     launcher = InProcessLauncher(connect_timeout=10.0,
                                  delays={"node1": 0.9})
 
     def work(x):
-        time.sleep(0.05)
+        time.sleep(0.1)
         return x + 1
 
     app = ClusterBuilder().build_application(
@@ -274,11 +303,13 @@ def test_late_join_mid_run_gets_load_and_credits_exactly_once():
 def test_stranger_late_join_follows_the_policy(allow):
     """A node-loader nobody launched dials in mid-run: admitted and fed
     work under the default policy, turned away (connection closed) under
-    allow_late_join=False.  Either way the result is exactly-once."""
+    allow_late_join=False.  Either way the result is exactly-once.  An
+    item takes 0.1 s, so an admitted stranger finds items queued for about
+    3.7 s after it is started."""
     n_items = 40
 
     def work(x):
-        time.sleep(0.05)
+        time.sleep(0.1)
         return x + 1
 
     app = ClusterBuilder().build_application(
@@ -385,3 +416,194 @@ def test_local_launcher_is_the_default_and_unchanged():
     assert isinstance(app.launcher, LocalLauncher)
     assert all(h.where == "local" for h in app.handles.values())
     assert app.orphaned() == []
+
+
+def test_launcher_and_hosts_are_mutually_exclusive():
+    app = ClusterBuilder().build_application(
+        _spec(1, 1, 1, lambda x: x), backend="cluster",
+        launcher=InProcessLauncher(), hosts=["localhost"],
+    )
+    with pytest.raises(TypeError, match="not both"):
+        app.start()
+
+
+# ---------------------------------------------------------------------------
+# SSHLauncher (stub ssh executes the remote command locally)
+# ---------------------------------------------------------------------------
+
+
+def _jax_sum(work, n_items):
+    """The same summing job on the JAX package's threads backend."""
+    spec = jax_dsl.ClusterSpec.simple(
+        host="127.0.0.1", nclusters=1, workers_per_node=2,
+        emit_details=jax_proc.EmitDetails(
+            name="range", init=lambda limit: (0, limit), init_data=(n_items,),
+            create=lambda s: ((None, s) if s[0] >= s[1]
+                              else (s[0], (s[0] + 1, s[1])))),
+        work_function=work,
+        result_details=jax_proc.ResultDetails(
+            name="sum", init=lambda: 0, collect=lambda a, x: a + x),
+    )
+    return jax_builder.ClusterBuilder().build_application(spec).run()
+
+
+@pytest.fixture
+def stub_ssh(tmp_path):
+    """An ``ssh`` stand-in: drops the hostname, runs the command locally."""
+    path = tmp_path / "stub-ssh"
+    path.write_text("#!/bin/sh\n# stub ssh: argv = <host> <command>\n"
+                    "shift\nexec sh -c \"$1\"\n")
+    path.chmod(path.stat().st_mode | stat.S_IXUSR)
+    return str(path)
+
+
+def test_ssh_launcher_runs_cluster_through_stub_ssh(stub_ssh):
+    """The full fan-out path — command assembly, env export, per-node ssh
+    process, logs — against a stub ssh."""
+    launcher = SSHLauncher(
+        ["ws-a", "ws-b"], ssh_cmd=(stub_ssh,), ssh_opts=(),
+        python=sys.executable, connect_timeout=30.0,
+    )
+    builder = ClusterBuilder()
+    app = builder.build_application(
+        _spec(2, 2, 30, lambda x: x * x), backend="cluster",
+        launcher=launcher, job_timeout=120.0, **SLACK,
+    )
+    assert app.run() == _jax_sum(lambda x: x * x, 30)
+    # Round-robin placement over the host pool, one ssh client per node.
+    assert {h.where for h in app.handles.values()} == {"ssh:ws-a", "ssh:ws-b"}
+    assert all(h.returncode == 0 for h in app.handles.values())
+    assert any("node-loader done" in line
+               for h in app.handles.values() for line in h.logs())
+    assert app.orphaned() == []
+
+
+def test_ssh_code_sync_tar_fallback_ships_src_tree(tmp_path, stub_ssh):
+    """Without rsync the sync falls back to tar-over-ssh; the remote dir
+    ends up with the src tree the node-loader needs."""
+    remote_dir = tmp_path / "deployed"
+    launcher = SSHLauncher(
+        ["ws-a"], ssh_cmd=(stub_ssh,), ssh_opts=(),
+        remote_dir=str(remote_dir), sync="tar",
+    )
+    launcher.prepare("127.0.0.1", 2000)
+    assert launcher.synced_hosts == ["ws-a"]
+    synced = remote_dir / "src" / "repro_torch" / "cluster" / "node_loader.py"
+    assert synced.is_file()
+    assert not list(remote_dir.glob("**/__pycache__"))
+    assert not (remote_dir / "build").exists()  # src only, no built kernels
+    # The launch command runs from the synced tree, not this checkout.
+    cmd = launcher.remote_command("node0")
+    assert f"cd {remote_dir}" in cmd
+    assert f"PYTHONPATH={remote_dir}/src" in cmd
+
+
+def test_ssh_launcher_end_to_end_from_synced_tree(tmp_path, stub_ssh):
+    """Code sync + launch together: the node-loader actually executes out
+    of the tar-synced copy."""
+    remote_dir = tmp_path / "deployed"
+    launcher = SSHLauncher(
+        ["ws-a"], ssh_cmd=(stub_ssh,), ssh_opts=(),
+        remote_dir=str(remote_dir), sync="tar",
+        python=sys.executable, connect_timeout=30.0,
+    )
+    app = ClusterBuilder().build_application(
+        _spec(1, 2, 20, lambda x: 2 * x), backend="cluster",
+        launcher=launcher, job_timeout=120.0, **SLACK,
+    )
+    assert app.run() == _jax_sum(lambda x: 2 * x, 20)
+    assert app.orphaned() == []
+
+
+def test_ssh_respawn_avoids_the_machine_that_swallowed_the_launch(stub_ssh,
+                                                                  tmp_path):
+    """Respawn placement: the replacement launch steers clear of the host
+    whose first launch went silent."""
+    # A second "ssh" that eats the command: the remote machine accepts the
+    # session but the node-loader never comes up.
+    eater = tmp_path / "eating-ssh"
+    eater.write_text("#!/bin/sh\nexit 0\n")
+    eater.chmod(eater.stat().st_mode | stat.S_IXUSR)
+
+    class FirstLaunchEaten(SSHLauncher):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.eaten = False
+
+        def launch(self, node_id, *, avoid=()):
+            real_cmd = self.ssh_cmd
+            if not self.eaten:
+                self.eaten = True
+                self.ssh_cmd = (str(eater),)
+            try:
+                return super().launch(node_id, avoid=avoid)
+            finally:
+                self.ssh_cmd = real_cmd
+
+    launcher = FirstLaunchEaten(
+        ["ws-bad", "ws-good"], ssh_cmd=(stub_ssh,), ssh_opts=(),
+        python=sys.executable, connect_timeout=30.0,
+    )
+    app = ClusterBuilder().build_application(
+        _spec(1, 1, 20, lambda x: x + 7), backend="cluster",
+        launcher=launcher, max_respawns=1, respawn_after=0.4,
+        register_timeout=15.0, job_timeout=120.0, **SLACK,
+    )
+    assert app.run() == _jax_sum(lambda x: x + 7, 20)
+    hl = app.host_loader
+    assert hl.stats.respawns == 1
+    # node0 went to ws-bad and vanished; node0r2 avoided ws-bad.
+    assert app.handles["node0"].where == "ssh:ws-bad"
+    assert app.handles["node0r2"].where == "ssh:ws-good"
+    assert app.orphaned() == []
+
+
+def test_ssh_home_relative_remote_dir_stays_shell_expandable():
+    """remote_dir='~/x' must reach the remote shell as "$HOME"/x — quoting
+    the tilde would make cd/PYTHONPATH point at a literal './~' dir."""
+    launcher = SSHLauncher(["ws"], remote_dir="~/cluster-app", sync="none")
+    launcher.prepare("0.0.0.0", 2000)
+    cmd = launcher.remote_command("node0")
+    assert 'cd "$HOME"/cluster-app' in cmd
+    assert 'PYTHONPATH="$HOME"/cluster-app/src' in cmd
+    assert "'~" not in cmd
+
+
+def test_ssh_explicit_connect_host_survives_prepare():
+    """The host binds 0.0.0.0, the launcher carries the LAN-reachable
+    address remote nodes must dial — prepare() must not clobber it with the
+    (unroutable or loopback) bind address."""
+    launcher = SSHLauncher(["ws"], connect_host="10.0.0.5")
+    launcher.prepare("0.0.0.0", 2000)
+    assert launcher.connect_host == "10.0.0.5"
+    assert "--host 10.0.0.5" in launcher.remote_command("node0")
+    # Unconfigured -> fall back to the bind address, loopback-resolved
+    # (the ssh-to-localhost case).
+    fallback = SSHLauncher(["ws"])
+    fallback.prepare("0.0.0.0", 2000)
+    assert fallback.connect_host == "127.0.0.1"
+
+
+def test_ssh_node_env_pins_no_platform_and_names_the_remote_src():
+    """The ssh node env is ``torch_node_env``'s with ``PYTHONPATH`` pointed
+    at the remote tree: no platform pinned (the JAX package's launcher pins
+    ``JAX_PLATFORMS=cpu``), no compile cache, and never this checkout's
+    ``src`` on a synced remote."""
+    launcher = SSHLauncher(["ws"], remote_dir="/srv/app", sync="none")
+    launcher.prepare("127.0.0.1", 2000)
+    assert launcher._remote_env() == {**torch_node_env(),
+                                      "PYTHONPATH": "/srv/app/src"}
+    cmd = launcher.remote_command("node0")
+    assert "env PYTHONPATH=/srv/app/src " in cmd
+    assert SRC_DIR not in cmd
+    assert "JAX_" not in cmd and "CUDA_VISIBLE_DEVICES" not in cmd
+    assert "-m repro_torch.cluster.node_loader" in cmd
+
+    jax_launcher = JaxSSHLauncher(["ws"], remote_dir="/srv/app", sync="none")
+    jax_launcher.prepare("127.0.0.1", 2000)
+    assert "JAX_PLATFORMS=cpu" in jax_launcher.remote_command("node0")
+
+    # A shared filesystem: this checkout's src first, then this path.
+    shared = SSHLauncher(["ws"])
+    shared.prepare("127.0.0.1", 2000)
+    assert shared._remote_env()["PYTHONPATH"].split(":")[0] == SRC_DIR

@@ -1,9 +1,12 @@
 """The port's peer data plane (``repro_torch.cluster.peer``) and the stage
 knobs that steer it, on localhost sockets and the CPU.
 
-Mirrors the tests of ``tests/test_peer.py`` that need neither the warm
-service nor its broadcast blocks or chaos seam (none of which is ported
-yet): stable hashing and routing tables, the peer server's intake gate,
+Mirrors the tests of ``tests/test_peer.py``: stable hashing and routing
+tables, the partition seam fault injection cuts peer edges with (the
+sender refuses a cut edge, the receiver still takes a frame already in
+flight), the peer server's intake gate, the broadcast-block registry and
+store (chunk assembly, digest rejection, LRU bound, the process-global
+mirror's refcount; manifests and digests held equal to the JAX package's),
 route validation in the DSL (``route=``, ``key_fn=``), ``normalize_routes``
 and ``verify_pipeline(routes=)`` — the last against the JAX package's state
 counts — and the peer directory's IPv6 parsing.  The end-to-end cases run
@@ -11,21 +14,34 @@ the pipelines as one ``backend="cluster"`` job each (node-loaders as
 threads, ``InProcessLauncher``): a peer hop relays no payload byte through
 the host, the host-routed control does, a keyed shuffle, two chained peer
 hops, and a node killed mid-run with items in the peer ledger, each
-exactly-once.  Last, the per-stage ``prefetch=`` and ``flush_ms=`` knobs
-reach the node's credit window and flush cadence.
+exactly-once.  The per-stage ``prefetch=`` and ``flush_ms=`` knobs reach
+the node's credit window and flush cadence.  Last, on a warm pool
+(``ClusterService``): a block published before a job is read by name in
+its work function after every node fetched it over the wire, and node
+gauges ride REPORT frames ahead of a glacial heartbeat.
 """
 
+import socket
 import threading
 import time
 
 import pytest
 
+from repro.cluster import peer as jax_peer
 from repro.core.verify import verify_pipeline as jax_verify_pipeline
 from repro_torch.cluster import peer
 from repro_torch.cluster.deploy.inprocess import InProcessLauncher
 from repro_torch.cluster.host_loader import HostLoader
 from repro_torch.cluster.membership import NodeRecord
-from repro_torch.cluster.wire import FrameType, dumps_code
+from repro_torch.cluster.netchannels import ChannelClosed
+from repro_torch.cluster.service import ClusterService
+from repro_torch.cluster.wire import (
+    APP_WIRE_CHANNEL,
+    Frame,
+    FrameConnection,
+    FrameType,
+    dumps_code,
+)
 from repro_torch.core.builder import ClusterBuilder
 from repro_torch.core.dsl import Pipeline
 from repro_torch.core.processes import EmitDetails, ResultDetails
@@ -149,11 +165,58 @@ def test_route_table_empty_and_unknown_stage():
     assert not rt.has(0)
 
 
+def test_partition_seam_round_trip():
+    try:
+        assert not peer.is_partitioned("nodeX")
+        peer.partition_node("nodeX", duration_s=30.0)
+        assert peer.is_partitioned("nodeX")
+        assert peer.is_partitioned("nodeY", "nodeX")
+    finally:
+        peer.heal_partitions()
+    assert not peer.is_partitioned("nodeX")
+
+
+def test_partition_is_sender_side_only_for_items():
+    """Exactly-once under partition races: the sender refuses new
+    transfers on a cut edge, but a PEER_ITEMS frame that already reached
+    the receiver is processed — the sender has acked it to the host, so
+    eating it would strand the item in a ledger no requeue revisits."""
+    store = peer.BlockStore()
+    server = peer.PeerServer("partRecv", store, bind_host="127.0.0.1")
+    server.start()
+    got: list = []
+    server.set_on_items(lambda jid, items: got.extend(items))
+    client = peer.PeerClient(
+        "partSend", {"partRecv": ("127.0.0.1", server.port)})
+    try:
+        # A raw dialed link stands in for a frame in flight when the
+        # partition activates: it bypasses the client's send-side gate.
+        raw = FrameConnection(
+            socket.create_connection(("127.0.0.1", server.port)))
+        raw.send(Frame(FrameType.PEER_HELLO, {"node_id": "partSend"}))
+        peer.partition_node("partRecv", duration_s=30.0)
+        with pytest.raises(ChannelClosed, match="partitioned"):
+            client.send_items(7, "partRecv", [{"id": 0, "s": 1, "obj": 0}])
+        raw.send(Frame(FrameType.PEER_ITEMS,
+                       {"from": "partSend",
+                        "items": [{"id": 1, "s": 1, "obj": 5}]},
+                       APP_WIRE_CHANNEL, 7))
+        deadline = time.monotonic() + 5.0
+        while not got and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert [i["id"] for i in got] == [1]
+        raw.close()
+    finally:
+        peer.heal_partitions()
+        client.close()
+        server.close()
+
+
 def test_peer_server_intake_gate_applies_backpressure():
     """The intake gate runs on the reader thread before each PEER_ITEMS
     hand-off: while it blocks, nothing reaches the handler (the socket
     stops draining), and releasing it delivers everything in order."""
-    server = peer.PeerServer("gateRecv", bind_host="127.0.0.1")
+    server = peer.PeerServer("gateRecv", peer.BlockStore(), bind_host="127.0.0.1")
     server.start()
     got: list = []
     gate_open = threading.Event()
@@ -176,6 +239,111 @@ def test_peer_server_intake_gate_applies_backpressure():
     finally:
         client.close()
         server.close()
+
+
+# ---------------------------------------------------------------------------
+# broadcast block units
+# ---------------------------------------------------------------------------
+
+
+def test_block_registry_publish_idempotent_immutable():
+    reg = peer.BlockRegistry()
+    data = b"w" * 100
+    digest = reg.publish("weights", data)
+    assert reg.publish("weights", data) == digest  # same bytes: fine
+    with pytest.raises(ValueError, match="different content"):
+        reg.publish("weights", b"x" * 100)
+    (entry,) = reg.manifest()
+    assert entry == {"name": "weights", "digest": digest,
+                     "size": 100, "nchunks": 1}
+    jax_reg = jax_peer.BlockRegistry()
+    jax_reg.publish("weights", data)
+    assert reg.manifest() == jax_reg.manifest()
+    assert reg.get_chunk("weights", 0) == data
+    assert reg.get_chunk("weights", 1) is None
+    assert reg.get_chunk("nope", 0) is None
+
+
+def test_block_store_assembles_chunks_and_verifies_digest():
+    reg = peer.BlockRegistry()
+    # >1 chunk so assembly order and indexing actually matter
+    data = bytes(range(256)) * ((peer.BLOCK_CHUNK_BYTES * 2) // 256 + 1)
+    reg.publish("big", data)
+    (entry,) = reg.manifest()
+    assert entry["nchunks"] == 3
+    jax_reg = jax_peer.BlockRegistry()
+    jax_reg.publish("big", data)
+    assert reg.manifest() == jax_reg.manifest()
+
+    store = peer.BlockStore()
+    assert store.expect(entry)
+    assert store.missing("big") == [0, 1, 2]
+    # out-of-order, with a duplicate — both idempotent
+    for idx in (2, 0, 0, 1):
+        store.add_chunk("big", idx, reg.get_chunk("big", idx), from_peer=idx == 1)
+    assert store.wait("big", timeout=5.0) == data
+    assert store.missing("big") == []
+    assert not store.expect(entry)  # already resident: nothing to fetch
+    c = store.counters()
+    assert c["blocks_fetched_from_peers"] == 1
+    assert c["blocks_fetched_from_host"] == 2
+    # resident blocks serve chunks to peers
+    assert store.get_chunk("big", 2) == reg.get_chunk("big", 2)
+    store.release()
+
+
+def test_block_store_drops_corrupt_assembly_for_retry():
+    reg = peer.BlockRegistry()
+    reg.publish("blk", b"a" * 50)
+    (entry,) = reg.manifest()
+    store = peer.BlockStore()
+    store.expect(entry)
+    store.add_chunk("blk", 0, b"b" * 50)  # right size, wrong bytes
+    assert not store.has("blk")
+    assert store.digest_failures == 1
+    assert store.missing("blk") == [0]  # retryable
+    store.add_chunk("blk", 0, b"a" * 50)
+    assert store.wait("blk", timeout=5.0) == b"a" * 50
+    store.release()
+
+
+def test_block_store_lru_bound():
+    store = peer.BlockStore(slots=2)
+    reg = peer.BlockRegistry()
+    for i in range(3):
+        reg.publish(f"b{i}", bytes([i]) * 10)
+    for entry in reg.manifest():
+        store.expect(entry)
+        store.add_chunk(entry["name"], 0, reg.get_chunk(entry["name"], 0))
+    assert not store.has("b0")  # evicted
+    assert store.has("b1") and store.has("b2")
+    store.release()
+
+
+def test_block_eviction_and_release_unpin_global_mirror():
+    """The process-global read mirror must shrink with the store LRUs: an
+    eviction (or a node shutdown's release) drops the global copy once the
+    last holding store lets go, so a warm pool node stays bounded."""
+    reg = peer.BlockRegistry()
+    for i in range(3):
+        reg.publish(f"gmb{i}", bytes([i]) * 16)
+    entries = {e["name"]: e for e in reg.manifest()}
+    store = peer.BlockStore(slots=2)
+    for name in ("gmb0", "gmb1", "gmb2"):
+        store.expect(entries[name])
+        store.add_chunk(name, 0, reg.get_chunk(name, 0))
+    # LRU evicted gmb0 from the store AND the global mirror
+    assert not store.has("gmb0")
+    assert "gmb0" not in peer._global_blocks
+    # a second holder keeps the mirror entry alive past the first release
+    store2 = peer.BlockStore()
+    store2.expect(entries["gmb1"])
+    store2.add_chunk("gmb1", 0, reg.get_chunk("gmb1", 0))
+    store.release()
+    assert peer.get_block("gmb1", timeout=1.0) == bytes([1]) * 16
+    assert "gmb2" not in peer._global_blocks  # sole holder released
+    store2.release()
+    assert "gmb1" not in peer._global_blocks
 
 
 # ---------------------------------------------------------------------------
@@ -449,3 +617,72 @@ def test_kill_peer_target_mid_run_exactly_once():
     assert hl.stats.items_total == n
     assert hl.stats.host_relay_bytes == 0
     assert app.orphaned() == []
+
+
+# ---------------------------------------------------------------------------
+# e2e on a warm pool: broadcast blocks and REPORT frames
+# ---------------------------------------------------------------------------
+
+
+def _service(**kw):
+    kw.setdefault("nodes", 3)
+    kw.setdefault("workers", 2)
+    kw.setdefault("launcher", InProcessLauncher())
+    # No case here asserts a death: 10 s of heartbeat silence.
+    kw.setdefault("heartbeat_interval", 0.5)
+    kw.setdefault("heartbeat_misses", 20)
+    return ClusterService(**kw)
+
+
+def test_broadcast_block_readable_in_work_fn_and_peer_fetched():
+    """publish_block before submit: every node assembles the block (host
+    stripe + peer trades), and the work function reads it by name."""
+    data = bytes(range(256)) * 64  # 16 KiB, still multi-node relevant
+    n = 12
+
+    def scaled(x):
+        blob = peer.get_block("peer-test-weights", timeout=30.0)
+        return x * len(blob)
+
+    with _service() as svc:
+        digest = svc.publish_block("peer-test-weights", data)
+        assert digest == peer.block_digest(data) == jax_peer.block_digest(data)
+        h = svc.submit(_two_stage(n, stage1=scaled, plus_nodes=1), timeout=60)
+        assert h.result() == sorted(2 * i * len(data) for i in range(n))
+        # The stripe fetches run concurrently with the job and their REPORT
+        # can land a beat after result() — poll briefly for the counters.
+        deadline = time.monotonic() + 5.0
+        fetched = 0
+        while time.monotonic() < deadline:
+            snap = svc.metrics_snapshot()
+            reports = [v.get("report") or {} for v in snap["nodes"].values()]
+            fetched = sum(r.get("blocks_fetched_from_peers", 0) +
+                          r.get("blocks_fetched_from_host", 0)
+                          for r in reports)
+            if fetched >= svc.nodes:
+                break
+            time.sleep(0.02)
+        # every node had to pull the block over the wire
+        assert fetched >= 1
+    assert svc.orphaned() == []
+
+
+def test_report_frames_keep_gauges_fresh_without_heartbeat():
+    """Node gauges ride dedicated REPORT frames pushed on result activity,
+    so with a glacial heartbeat the host still sees fresh per-node peer
+    counters right after a job completes."""
+    n = 20
+    with _service(heartbeat_interval=30.0, heartbeat_misses=4) as svc:
+        h = svc.submit(_two_stage(n), timeout=60)
+        assert h.result() == sorted(2 * i + 1 for i in range(n))
+        deadline = time.monotonic() + 2.0  # << one 30s heartbeat
+        while time.monotonic() < deadline:
+            snap = svc.metrics_snapshot()
+            reports = [v.get("report") or {}
+                       for v in snap["nodes"].values()]
+            if sum(r.get("peer_items_sent", 0) for r in reports) >= n:
+                break
+            time.sleep(0.02)
+        else:
+            pytest.fail("peer gauges never arrived ahead of the heartbeat")
+    assert svc.orphaned() == []

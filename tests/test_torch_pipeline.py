@@ -25,6 +25,10 @@ from repro_torch.runtime.failures import WorkFunctionError
 
 # Fast liveness settings for cluster-backend tests (as in test_torch_cluster).
 FAST = dict(heartbeat_interval=0.1, heartbeat_misses=4)
+# Liveness for a case that asserts what kind of failure a job ends with, not
+# that a death is detected: 10 s of silence, so a node a loaded machine holds
+# off the interpreter is never declared dead before its error arrives.
+SLACK = dict(heartbeat_interval=0.5, heartbeat_misses=20)
 PACKAGES = {"jax": (jax_builder, jax_dsl, jax_proc),
             "torch": (port_builder, port_dsl, port_proc)}
 
@@ -149,10 +153,10 @@ def _array_spec(work, n=4, workers=1):
     )
 
 
-def _cluster_app(spec):
+def _cluster_app(spec, liveness=FAST):
     return port_builder.ClusterBuilder().build_application(
         spec, backend="cluster", launcher=InProcessLauncher(),
-        job_timeout=60.0, **FAST)
+        job_timeout=60.0, **liveness)
 
 
 def test_cluster_delivery_hands_out_immutable_views():
@@ -185,7 +189,7 @@ def test_readonly_delivery_catches_cluster_mutation_bugs_single_host():
     with pytest.raises(WorkFunctionError):
         port_builder.ClusterBuilder().build_application(
             _array_spec(mutating), readonly_delivery=True).run()
-    app = _cluster_app(_array_spec(mutating))
+    app = _cluster_app(_array_spec(mutating), SLACK)
     with pytest.raises(WorkFunctionError, match="read-only"):
         app.run()
     assert app.orphaned() == []

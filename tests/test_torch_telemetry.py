@@ -1,14 +1,15 @@
 """The port's live telemetry (``repro_torch.cluster.telemetry``): bus,
 endpoint, traces.
 
-Mirrors the tests of ``tests/test_telemetry.py`` that need no warm service
-(its service-backed cases wait for the service's port): registry units
-against an injected clock (deterministic Prometheus golden output,
-ring/cursor semantics, histograms, the JSONL trace), membership transition
-stamps, the HTTP endpoint and its event stream, and a ``backend="cluster"``
-run serving ``/metrics`` (``http_port=``) whose final snapshot agrees with
-the host's own counters.  Everything stays on 127.0.0.1 with stdlib HTTP
-only.
+Mirrors the tests of ``tests/test_telemetry.py``: registry units against
+an injected clock (deterministic Prometheus golden output, ring/cursor
+semantics, histograms, the JSONL trace), membership transition stamps, the
+HTTP endpoint and its event stream, a ``backend="cluster"`` run serving
+``/metrics`` (``http_port=``) whose final snapshot agrees with the host's
+own counters, and a warm ``ClusterService`` running two concurrent jobs
+whose ``/metrics`` agrees with each job's ``stats()`` (and whose per-job
+code counts equal the JAX package's pool's on the same jobs).  Everything
+stays on 127.0.0.1 with stdlib HTTP only.
 """
 
 import json
@@ -19,8 +20,13 @@ import urllib.request
 
 import pytest
 
+from repro.cluster.deploy.inprocess import InProcessLauncher as JaxInProcess
+from repro.cluster.service import ClusterService as JaxService
+from repro.core import dsl as jax_dsl
+from repro.core import processes as jax_proc
 from repro_torch.cluster.deploy.inprocess import InProcessLauncher
 from repro_torch.cluster.membership import Membership
+from repro_torch.cluster.service import ClusterService
 from repro_torch.cluster.telemetry import (
     Telemetry,
     TelemetryServer,
@@ -32,6 +38,8 @@ from repro_torch.core.dsl import ClusterSpec
 from repro_torch.core.processes import EmitDetails, ResultDetails
 
 FAST = dict(heartbeat_interval=0.1, heartbeat_misses=4)
+# The service cases assert counters, never a death: 10 s of silence.
+SLACK = dict(heartbeat_interval=0.5, heartbeat_misses=20)
 
 
 def _range_emit(n):
@@ -54,6 +62,40 @@ def _spec(work, n_items, *, nclusters=2, workers=2):
         emit_details=_range_emit(n_items), work_function=work,
         result_details=_list_collect(),
     )
+
+
+def _service(**kw):
+    kw.setdefault("nodes", 2)
+    kw.setdefault("workers", 2)
+    kw.setdefault("launcher", InProcessLauncher())
+    kw.update(SLACK)
+    return ClusterService(**kw)
+
+
+def _jax_code_counts(work_a, work_b, n):
+    """(code_shipped, code_cached, items_collected) of two concurrent jobs
+    on the JAX package's warm pool."""
+
+    def spec(work):
+        return jax_dsl.ClusterSpec.simple(
+            host="127.0.0.1", nclusters=2, workers_per_node=2,
+            emit_details=jax_proc.EmitDetails(
+                name="range", init=lambda limit: (0, limit), init_data=(n,),
+                create=lambda s: ((None, s) if s[0] >= s[1]
+                                  else (s[0], (s[0] + 1, s[1])))),
+            work_function=work,
+            result_details=jax_proc.ResultDetails(
+                name="list", init=lambda: [], collect=lambda a, x: a + [x],
+                finalise=sorted))
+
+    with JaxService(nodes=2, workers=2, launcher=JaxInProcess(),
+                    **SLACK) as svc:
+        handles = [svc.submit(spec(w), timeout=120) for w in (work_a, work_b)]
+        for h in handles:
+            h.result()
+        return [(st["code_shipped"], st["code_cached"],
+                 st["items_collected"])
+                for st in (h.stats() for h in handles)]
 
 
 def _double(x):
@@ -312,6 +354,102 @@ def test_endpoint_routes_and_error_paths():
 # ---------------------------------------------------------------------------
 
 
+def test_service_metrics_consistent_with_job_stats(tmp_path):
+    """The acceptance invariant: with two concurrent jobs on one pool,
+    /metrics per-job gauges and per-node counters sum consistently with
+    each job's final stats(), the dashboard renders, and the JSONL trace
+    replays the full lifecycle."""
+    trace = str(tmp_path / "svc.jsonl")
+    with _service(http_port=0, trace_path=trace) as svc:
+        assert svc.http_url is not None
+
+        def slow_double(x):
+            time.sleep(0.002)
+            return x * 2
+
+        def slow_triple(x):
+            time.sleep(0.002)
+            return x * 3
+
+        n = 40
+        h1 = svc.submit(_spec(slow_double, n), timeout=120)
+        h2 = svc.submit(_spec(slow_triple, n), timeout=120)
+
+        # Mid-run: the endpoint answers while the dispatcher is hot.
+        mid = _get_json(svc.http_url + "/metrics")
+        assert mid["cluster"]["nodes_total"] == 2
+
+        assert h1.result() == [2 * i for i in range(n)]
+        assert h2.result() == [3 * i for i in range(n)]
+
+        snap = _get_json(svc.http_url + "/metrics")
+        s1, s2 = h1.stats(), h2.stats()
+        for h, s in ((h1, s1), (h2, s2)):
+            g = snap["jobs"][str(h.job_id)]
+            assert g["done"] is True and g["error"] is None
+            assert g["items_collected"] == s["items_collected"] == n
+            assert g["pending"] == [0] and g["inflight"] == [0]
+            assert g["code_shipped"] == s["code_shipped"]
+            assert g["code_cached"] == s["code_cached"]
+            # Per-node attribution reconciles with the job totals.
+            assert sum(d["items"] for d in s["nodes"].values()) \
+                == s["items_collected"] + s["forwarded"]
+            assert sum(d.get("cache_hits", 0)
+                       for d in s["nodes"].values()) == s["code_cached"]
+            assert sum(d.get("cache_misses", 0)
+                       for d in s["nodes"].values()) == s["code_shipped"]
+        # Cluster rollups agree with the sum over jobs.
+        assert snap["cluster"]["items_total"] == 2 * n
+        assert snap["cluster"]["jobs_completed"] == 2
+        assert snap["cluster"]["jobs_submitted"] == 2
+        assert snap["cluster"]["jobs_active"] == 0
+        # Every pool node reported wire traffic, and the heartbeat-carried
+        # node report eventually reflects both jobs' code loads (the beat
+        # cadence is FAST; poll until the piggybacked counters catch up).
+        want_misses = s1["code_shipped"] + s2["code_shipped"]
+        deadline = time.monotonic() + 10
+        while True:
+            nodes = _get_json(svc.http_url + "/nodes")["nodes"]
+            misses = sum(d.get("report", {}).get("cache_misses", 0)
+                         for d in nodes.values())
+            if misses == want_misses:
+                break
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        assert set(nodes) == {"node0", "node1"}
+        for d in nodes.values():
+            assert d["state"] == "loaded"
+            assert d["wire"]["bytes_sent"] > 0
+            assert d["transitions"][-1]["state"] == "loaded"
+
+        # The event stream saw the full lifecycle, in order per job.
+        events = _get_json(svc.http_url + "/events?since=0&limit=500")
+        kinds = [e["kind"] for e in events["events"]]
+        assert "pool_ready" in kinds
+        assert kinds.count("job_submit") == 2
+        assert kinds.count("job_done") == 2
+        assert kinds.index("job_submit") < kinds.index("job_done")
+        # expect() stamps LAUNCHING on the record silently; the bus sees
+        # the transitions from REGISTER onward.
+        member_states = [e["state"] for e in events["events"]
+                         if e["kind"] == "membership"
+                         and e["node"] == "node0"]
+        assert member_states[:2] == ["registered", "loaded"]
+    assert svc.orphaned() == []
+
+    # Trace replay: the JSONL file holds the same lifecycle, seq-ordered.
+    trail = read_trace(trace)
+    seqs = [e["seq"] for e in trail]
+    assert seqs == sorted(seqs)
+    tkinds = [e["kind"] for e in trail]
+    assert tkinds.count("job_submit") == 2 and tkinds.count("job_done") == 2
+    assert "pool_ready" in tkinds and "membership" in tkinds
+
+    # The same two jobs on the JAX package's pool ship and count the same.
+    assert [(s["code_shipped"], s["code_cached"], s["items_collected"])
+            for s in (s1, s2)] == _jax_code_counts(_double, _triple, n)
+
+
 def test_one_shot_cluster_app_serves_metrics():
     """backend="cluster" observability: ProcessClusterApplication serves
     the endpoint during the run, and its final snapshot agrees with the
@@ -353,6 +491,17 @@ def test_cluster_app_without_http_port_serves_nothing():
     assert app.http_url is None
     assert app.metrics_snapshot()["cluster"]["items_total"] == 10
     assert app.orphaned() == []
+
+
+def test_service_without_endpoint_has_no_server():
+    with _service() as svc:
+        assert svc.http_url is None
+        h = svc.submit(_spec(_double, 10), timeout=60)
+        assert h.result() == [2 * i for i in range(10)]
+        # The bus still collected everything for metrics_snapshot().
+        snap = svc.metrics_snapshot()
+        assert snap["cluster"]["jobs_completed"] == 1
+    assert svc.orphaned() == []
 
 
 def test_sse_stream_pushes_snapshots_and_bus_events():
