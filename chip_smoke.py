@@ -39,13 +39,25 @@ per source, all at once) and drives the port's paths on the card:
    in float32, then at full depth (26 layers, bf16), with prompts longer
    than the window so that the local layers' ring wraps, and its serving
    run repeated under ``torch.profiler`` to see where the device time goes.
+4. Training: the gradients of the three model kernels held against their
+   plain versions (the RMS-norm backward kernel; the RG-LRU backward, the
+   scan kernel on reversed inputs, bit-equal to the same construction over
+   ``rglru_scan_chunked``; the flash Function's explicit backward against
+   autograd of the plain forward); the ``Trainer`` on recurrentgemma-2b's
+   smoke config in float32 under ``torch.use_deterministic_algorithms``,
+   with a crash injected mid-run (the replayed losses bit-identical) and
+   its losses against the port's own CPU run from the same checkpoint;
+   then ``make_train_step`` at recurrentgemma-2b's full width and depth
+   (26 layers, bf16 compute, f32 parameters and AdamW state, B 1 x S 2048),
+   where each step's kernel launches are counted.
 
 Each phase prints one JSON line; any failure exits non-zero.  The line
 before the last lists every kernel with its launches on its path, its
 device time at that path's shapes, its bound, its plain version's time and
 a library call's (RMS norm and RG-LRU also split into their prefill and
 decode-tick launches, beside the time of as many launches at the least
-shape); the last line is the run's verdict.
+shape; the two backward kernels at the training path's shapes); the last
+line is the run's verdict.
 
 Without a CUDA device, or without the repository around it, it exits
 non-zero and prints no result.
@@ -58,16 +70,23 @@ import importlib.metadata
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
-import torch
-import torch.nn.functional as F
+
+# Deterministic cuBLAS for the trainer phase, set before torch first uses
+# cuBLAS (torch.use_deterministic_algorithms refuses cuBLAS without it).
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device; this script measures the card only")
@@ -81,7 +100,11 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.core.builder import ClusterBuilder  # noqa: E402
 from repro_torch.core.verify import verify_spec  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_reference  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_backward_reference,
+    attention_reference,
+)
 from repro_torch.kernels.mandelbrot import kernel as mandel_kernel  # noqa: E402
 from repro_torch.kernels.mandelbrot.ops import mandelbrot_line_stats  # noqa: E402
 from repro_torch.kernels.mandelbrot.ref import (  # noqa: E402
@@ -90,11 +113,16 @@ from repro_torch.kernels.mandelbrot.ref import (  # noqa: E402
 )
 from repro_torch.kernels.rglru import kernel as rglru_kernel  # noqa: E402
 from repro_torch.kernels.rglru.ref import (  # noqa: E402
+    rglru_scan_backward,
+    rglru_scan_backward_reference,
     rglru_scan_chunked,
     rglru_scan_reference,
 )
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
-from repro_torch.kernels.rmsnorm.ref import rms_norm_reference  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
+    rms_norm_backward_reference,
+    rms_norm_reference,
+)
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import recurrent as rec_mod  # noqa: E402
 from repro_torch.models.common import count_params, init_params  # noqa: E402
@@ -111,6 +139,12 @@ from repro_torch.quickstart import (  # noqa: E402
     make_calculate,
     mandelbrot_spec,
 )
+from repro_torch.configs.base import TRAIN_4K, ShapeConfig  # noqa: E402
+from repro_torch.data.pipeline import DataPipeline, SyntheticLM  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.runtime import steps as steps_mod  # noqa: E402
+from repro_torch.runtime.executor import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.runtime.failures import FailureEvent, FailurePlan  # noqa: E402
 from repro_torch.runtime.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.serve_pipeline import offline_greedy  # noqa: E402
 
@@ -202,6 +236,22 @@ YI_SERVE_PROMPT, YI_SERVE_MAX_SEQ = (64, 1025), 2048
 RG_CHECK_LAYERS, RG_MAX_SEQ = 3, 4096
 RG_CHECK_PROMPTS = ((6, (20, 2049)), (2, (2049, 3001)))
 RG_SERVE_PROMPTS = ((12, (64, 1025)), (4, (2100, 3501)))
+
+# Training.  Backward checks: RMS norm at both served widths and a ragged
+# one; RG-LRU at S around the chunk length and the training path's S; flash
+# at recurrentgemma-2b's training shape, a small GQA window and yi-9b's
+# grouping.  The trainer phase runs recurrentgemma-2b's smoke config in
+# float32; the full-width phase the whole model at B 1 x S 2048, cut from
+# the train_4k shape (S 4096, batch 256) to fit one card's 80 GB.
+RMS_BWD_SHAPES = [(9, 77), (2048, 2560), (2048, 4096), (4, 64)]
+RGLRU_BWD_S, RGLRU_BWD_W = (1, 16, 17, 2048), 2560
+FLASH_BWD = [(1, 10, 1, 2048, 256, 2048), (1, 4, 2, 50, 16, 32), (1, 32, 4, 1000, 128, 0)]
+# Gradients are compared as |got - want| <= tol * max(1, |want|): at S 2048
+# dV and dK reach 8-16, where one bf16 spacing is 0.0625.
+FLASH_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+TRAINER_SEQ, TRAINER_BATCH, TRAINER_STEPS = 64, 4, 8
+TRAINER_CKPT_EVERY, TRAINER_CRASH_AT, TRAINER_TOL = 3, 5, 1e-4
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2048, 1, 3
 
 
 def emit(obj: dict) -> None:
@@ -668,20 +718,23 @@ def main() -> None:
           # work function ships by plain pickle and payloads by pickle
           **{name: installed_version(name) for name in ("cloudpickle", "msgpack")}})
 
-    def timed_load(module):
+    def timed_load(load):
         t = time.perf_counter()
-        module.load()
+        load()
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(7) as pool:
-        builds = {name: pool.submit(timed_load, module) for name, module in (
-            ("mandelbrot", mandel_kernel), ("rmsnorm", rms_kernel),
-            ("flash_attention", flash_kernel), ("rglru", rglru_kernel))}
-        ptxas = {f"{name}_ptxas": pool.submit(ptxas_report, module.SOURCE, flags)
-                 for name, module, flags in (
-                     ("mandelbrot", mandel_kernel, mandel_kernel.FLAGS),
-                     ("rmsnorm", rms_kernel, ()), ("rglru", rglru_kernel, ()))}
+    with ThreadPoolExecutor(9) as pool:
+        builds = {name: pool.submit(timed_load, load) for name, load in (
+            ("mandelbrot", mandel_kernel.load), ("rmsnorm", rms_kernel.load),
+            ("rmsnorm_backward", rms_kernel.load_backward),
+            ("flash_attention", flash_kernel.load), ("rglru", rglru_kernel.load))}
+        ptxas = {f"{name}_ptxas": pool.submit(ptxas_report, source, flags)
+                 for name, source, flags in (
+                     ("mandelbrot", mandel_kernel.SOURCE, mandel_kernel.FLAGS),
+                     ("rmsnorm", rms_kernel.SOURCE, ()),
+                     ("rmsnorm_backward", rms_kernel.BACKWARD_SOURCE, ()),
+                     ("rglru", rglru_kernel.SOURCE, ()))}
         seconds = {name: f.result() for name, f in builds.items()}
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "per_kernel_s": seconds,
@@ -848,6 +901,16 @@ def main() -> None:
         variant: sum(serve["flash_variants"][variant] for serve in serves.values())
         for variant in ("wgmma", "f32")}})
     rows = kernel_rows(serves, errs)
+
+    # Training: the backward checks, the trainer, then the main training
+    # path at full width (its launches counted from zero just before it).
+    bwd_errs = {"rmsnorm_backward": check_rmsnorm_backward(),
+                "rglru_backward": check_rglru_backward(),
+                "flash_backward": check_flash_backward()}
+    train_trainer()
+    train = train_full()
+    rows += train_kernel_rows(train, bwd_errs,
+                              float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6)
     print(card, flush=True)
     emit({"kernels": [mandel_row, *rows]})
     print(json.dumps({"ok": True, "device": {
@@ -1161,6 +1224,7 @@ KERNELS = {"mandelbrot": mandel_kernel, "rmsnorm": rms_kernel,
 def reset_launches() -> None:
     for module in KERNELS.values():
         module.LAUNCHES = 0
+    rms_kernel.BACKWARD_LAUNCHES = rglru_kernel.BACKWARD_LAUNCHES = 0
     flash_kernel.LAUNCHES_BY_VARIANT = dict.fromkeys(flash_kernel.LAUNCHES_BY_VARIANT, 0)
 
 
@@ -1557,6 +1621,382 @@ def kernel_rows(serves: dict, errs: dict) -> list[dict]:
             row["launch_floor_ms"] = floor_ms
         out.append(row)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training: backward checks, the trainer, full-width train steps
+# ---------------------------------------------------------------------------
+
+
+def check_rmsnorm_backward() -> float:
+    """The RMS-norm backward kernel against its plain version: dx within the
+    forward's tolerance; dscale, a sum over N rows, within 1e-6 of the
+    column's sum of |g * x * r| (float32 sums taken in another order), plus
+    one bfloat16 spacing (2^-7 of the value) where dscale is bfloat16.
+    Two calls on the same inputs give the same bits (no atomics)."""
+    gen = torch.Generator("cuda").manual_seed(5)
+    worst = 0.0
+    for xdt, sdt in RMS_DTYPES:
+        for n, d in RMS_BWD_SHAPES:
+            x = torch.randn((n, d), generator=gen, device="cuda").to(xdt)
+            g = torch.randn((n, d), generator=gen, device="cuda").to(xdt)
+            scale = (0.2 * torch.randn((d,), generator=gen, device="cuda")).to(sdt)
+            dx, ds = rms_kernel.rms_norm_bwd_cuda(x, scale, g)
+            again = rms_kernel.rms_norm_bwd_cuda(x, scale, g)
+            want_dx, want_ds = rms_norm_backward_reference(x, scale, g)
+            xf = x.float()
+            r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
+            l1 = (g.float() * xf * r).abs().sum(0)
+            spacing = 2.0 ** -7 if sdt == torch.bfloat16 else 0.0
+            ds_err = (ds.float() - want_ds.float()).abs()
+            ds_ok = bool((ds_err <= 1e-6 * l1 + spacing * want_ds.float().abs()).all())
+            err = float((dx.float() - want_dx.float()).abs().max())
+            same = torch.equal(dx, again[0]) and torch.equal(ds, again[1])
+            ok = (dx.dtype == xdt and ds.dtype == sdt and err <= RMS_TOL[xdt]
+                  and ds_ok and same)
+            emit({"phase": "rmsnorm_backward_vs_plain", "shape": [n, d],
+                  "x_dtype": str(xdt), "scale_dtype": str(sdt),
+                  "dx_max_abs_err": err, "dx_tol": RMS_TOL[xdt],
+                  "dscale_max_abs_err": float(ds_err.max()),
+                  "dscale_max_err_over_l1": float((ds_err / l1.clamp(min=1e-30)).max()),
+                  "dscale_ok": ds_ok, "repeat_bit_equal": same,
+                  "blocks": rms_kernel.backward_blocks(
+                      n, rms_kernel.launch_plan(d, xdt).rows_per_block),
+                  "ok": ok})
+            if not ok:
+                raise SystemExit(f"rmsnorm backward differs at {n}x{d} {xdt}/{sdt}")
+            worst = max(worst, err)
+    return worst
+
+
+def check_rglru_backward() -> float:
+    """The RG-LRU backward (the scan kernel on reversed inputs) bit-equal to
+    the same construction over ``rglru_scan_chunked`` at the plan's chunk
+    length, and within 1e-5 of the explicit reverse loop."""
+    gen = torch.Generator("cuda").manual_seed(6)
+    worst = 0.0
+    for s in RGLRU_BWD_S:
+        for with_h0 in (False, True):
+            w = RGLRU_BWD_W
+            a = 0.5 + 0.499 * torch.rand((1, s, w), generator=gen, device="cuda")
+            b = torch.randn((1, s, w), generator=gen, device="cuda")
+            h0 = torch.randn((1, w), generator=gen, device="cuda") if with_h0 else None
+            h, _last = rglru_kernel.rglru_scan_cuda(a, b, h0)
+            gh = torch.randn((1, s, w), generator=gen, device="cuda")
+            g_last = torch.randn((1, w), generator=gen, device="cuda")
+            got = rglru_kernel.rglru_scan_backward_cuda(a, h, h0, gh, g_last)
+            length = rglru_kernel.chunk_plan(s, w).length
+            chunked = rglru_scan_backward(
+                a, h, h0, gh, g_last,
+                lambda a_, b_, h0_: rglru_scan_chunked(a_, b_, h0_, length))
+            loop = rglru_scan_backward_reference(a, h, h0, gh, g_last)
+            pairs = [(x, y, z) for x, y, z in zip(got, chunked, loop) if x is not None]
+            bit = all(torch.equal(x, y) for x, y, _ in pairs)
+            err = max(float((x - z).abs().max()) for x, _, z in pairs)
+            ok = bit and err <= RGLRU_TOL[torch.float32]
+            emit({"phase": "rglru_backward_vs_plain", "shape": [1, s, w],
+                  "h0": with_h0, "chunk_len": length,
+                  "bit_equal_chunked": bit, "max_abs_err_vs_loop": err,
+                  "tol": RGLRU_TOL[torch.float32], "ok": ok})
+            if not ok:
+                raise SystemExit(f"rglru backward differs at S={s} h0={with_h0}")
+            worst = max(worst, err)
+    return worst
+
+
+def check_flash_backward() -> float:
+    """The flash Function's gradients (kernel forward, explicit backward)
+    against autograd of the plain forward, in the model's layout."""
+    gen = torch.Generator("cuda").manual_seed(7)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, kv, s, d, window in FLASH_BWD:
+            q, k, v = (t.requires_grad_() for t in
+                       flash_inputs(b, h, kv, s, s, d, dtype, gen, True))
+            d_out = torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
+            got = torch.autograd.grad(
+                flash_ops.FlashAttentionFunction.apply(q, k, v, True, window),
+                (q, k, v), d_out)
+            want = torch.autograd.grad(flash_plain(q, k, v, True, window),
+                                       (q, k, v), d_out)
+            errs = [float(((g.float() - w.float()).abs()
+                           / w.float().abs().clamp(min=1.0)).max())
+                    for g, w in zip(got, want)]
+            ok = (all(g.dtype == dtype and bool(torch.isfinite(g).all()) for g in got)
+                  and max(errs) <= FLASH_BWD_TOL[dtype])
+            emit({"phase": "flash_backward_vs_plain", "shape": [b, h, kv, s, s, d],
+                  "window": window, "dtype": str(dtype),
+                  "max_err_dq_dk_dv": errs, "tol_times_max_1_abs": FLASH_BWD_TOL[dtype],
+                  "ok": ok})
+            if not ok:
+                raise SystemExit(f"flash backward differs at {(b, h, kv, s, d)} {dtype}")
+            worst = max(worst, *errs)
+    return worst
+
+
+def current_launches() -> dict[str, int]:
+    return {**{name: module.LAUNCHES for name, module in KERNELS.items()},
+            "rmsnorm_backward": rms_kernel.BACKWARD_LAUNCHES,
+            "rglru_backward": rglru_kernel.BACKWARD_LAUNCHES}
+
+
+def train_trainer() -> None:
+    """The Trainer on the card (recurrentgemma-2b smoke, float32) under
+    deterministic algorithms, with a crash after the step-3 checkpoint:
+    the replayed steps' losses must be bit-identical, and every step's loss
+    and grad norm within 1e-4 of the port's CPU run from the same step-0
+    checkpoint."""
+    cfg = dataclasses.replace(get_config(RG).smoke(), compute_dtype="float32")
+    shape = ShapeConfig("trainer_check", seq_len=TRAINER_SEQ,
+                        global_batch=TRAINER_BATCH, kind="train")
+    kw = dict(num_steps=TRAINER_STEPS, checkpoint_every=TRAINER_CKPT_EVERY,
+              warmup_steps=2)
+    with tempfile.TemporaryDirectory() as d:
+        start, card_dir, cpu_dir = (os.path.join(d, n) for n in ("start", "card", "cpu"))
+        torch.use_deterministic_algorithms(True)
+        try:
+            Trainer(cfg, shape, TrainerConfig(num_steps=0, checkpoint_dir=start),
+                    device="cuda").run()
+            shutil.copytree(start, card_dir)
+            shutil.copytree(start, cpu_dir)
+            reset_launches()
+            t0 = time.perf_counter()
+            card = Trainer(cfg, shape, TrainerConfig(checkpoint_dir=card_dir, **kw),
+                           failure_plan=FailurePlan(
+                               [FailureEvent(step=TRAINER_CRASH_AT, kind="crash")]),
+                           device="cuda")
+            out = card.run()
+            card_s = time.perf_counter() - t0
+            launches = current_launches()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        t0 = time.perf_counter()
+        cpu = Trainer(cfg, shape, TrainerConfig(checkpoint_dir=cpu_dir, **kw),
+                      device="cpu")
+        cpu.run()
+        cpu_s = time.perf_counter() - t0
+    seen: dict[int, float] = {}
+    replay = []
+    for m in card.metrics_history:
+        if m["step"] in seen:
+            replay.append(abs(seen[m["step"]] - m["loss"]))
+        seen[m["step"]] = m["loss"]
+    on_cpu = {m["step"]: m for m in cpu.metrics_history}
+    deltas = {k: max(abs(m[k] - on_cpu[m["step"]][k]) for m in card.metrics_history)
+              for k in ("loss", "grad_norm")}
+    ok = (out["restarts"] == 1 and bool(replay) and max(replay) == 0.0
+          and max(deltas.values()) <= TRAINER_TOL
+          and all(launches[k] > 0 for k in ("rmsnorm", "rmsnorm_backward", "flash",
+                                             "rglru", "rglru_backward"))
+          and all(math.isfinite(m["loss"]) for m in card.metrics_history))
+    emit({"phase": "train_trainer", "arch": cfg.name, "compute_dtype": cfg.compute_dtype,
+          "deterministic_algorithms": True,
+          "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+          "shape": [TRAINER_BATCH, TRAINER_SEQ], "steps": TRAINER_STEPS,
+          "crash_at": TRAINER_CRASH_AT, "restarts": out["restarts"],
+          "replayed_steps": len(replay),
+          "replay_max_delta": max(replay) if replay else None,
+          "card_losses": [[m["step"], m["loss"]] for m in card.metrics_history],
+          "max_delta_vs_cpu": deltas, "tol": TRAINER_TOL,
+          "card_wall_s": card_s, "cpu_wall_s": cpu_s,
+          "launches": launches, "ok": ok})
+    if not ok:
+        raise SystemExit("trainer on the card: replay or CPU parity failed")
+
+
+def expected_train_launches(cfg) -> dict[str, int]:
+    """Per train step with every block recomputed in the backward: ln1 and
+    ln2 of every block twice and final_norm once forward, each once
+    backward; one flash launch per attention layer, twice; one RG-LRU scan
+    per rec layer, twice forward and once reversed for the backward."""
+    if not cfg.remat:
+        raise SystemExit(f"{cfg.name}: the expected counts assume remat")
+    rec = cfg.layer_counts().get("rec", 0)
+    L = cfg.num_layers
+    return {"mandelbrot": 0, "rmsnorm": 4 * L + 1, "flash": 2 * (L - rec),
+            "rglru": 3 * rec, "rmsnorm_backward": 2 * L + 1, "rglru_backward": rec}
+
+
+def train_full() -> dict:
+    """``make_train_step`` at recurrentgemma-2b's full width and depth:
+    bf16 compute, f32 parameters and AdamW state, fresh SyntheticLM batches.
+    A first step warms up (its loss is printed: ln V at init); the next
+    steps are timed, their kernel launches counted step by step, and one
+    more runs under torch.profiler."""
+    cfg = get_config(RG)
+    specs = lm.lm_param_specs(cfg)
+    t0 = time.perf_counter()
+    params = init_params(specs, 0, "cuda", torch.float32)
+    opt_cfg = adamw.AdamWConfig()
+    opt_state = adamw.init_state(params, opt_cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_fn = steps_mod.make_train_step(cfg, opt_cfg, peak_lr=3e-4, warmup_steps=2,
+                                        total_steps=TRAIN_STEPS + 2)
+    pipe = DataPipeline(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+                        "cuda")
+    t0 = time.perf_counter()
+    params, opt_state, m = step_fn(params, opt_state, pipe.get(0), 0)
+    first_loss = float(m["loss"])
+    first_ms = (time.perf_counter() - t0) * 1e3
+    expected = expected_train_launches(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rows = []
+    for step in range(1, TRAIN_STEPS + 1):
+        batch = pipe.get(step)
+        before = current_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch, step)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        after = current_launches()
+        rows.append({"step": step, "loss": loss, "grad_norm": float(m["grad_norm"]),
+                     "lr": float(m["lr"]), "ms": ms,
+                     "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+                     "launches": {k: after[k] - before[k] for k in after}})
+    launches = current_launches()
+    flash_variants = dict(flash_kernel.LAUNCHES_BY_VARIANT)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # One more step under the profiler: device time and where it goes.
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = pipe.get(TRAIN_STEPS + 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        params, opt_state, m = step_fn(params, opt_state, batch, TRAIN_STEPS + 1)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    kernel_us, kernels = kernel_events(prof)
+    device_ms = sum(kernel_us.values()) / 1e3
+    mean_ms = statistics.mean(r["ms"] for r in rows)
+    emit({"phase": "train_full", "arch": cfg.name, "num_layers": cfg.num_layers,
+          "layer_kinds": cfg.layer_counts(), "d_model": cfg.d_model,
+          "params": count_params(specs), "param_dtype": cfg.param_dtype,
+          "compute_dtype": cfg.compute_dtype, "state_dtype": opt_cfg.state_dtype,
+          "remat": cfg.remat, "loss_seq_chunk": cfg.loss_seq_chunk,
+          "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+          "reduced_from": {"shape": TRAIN_4K.name,
+                           "seq_len": [TRAIN_4K.seq_len, TRAIN_SEQ],
+                           "global_batch": [TRAIN_4K.global_batch, TRAIN_BATCH]},
+          "init_params_s": init_s, "first_step_loss": first_loss,
+          "ln_vocab": math.log(cfg.vocab_size), "first_step_ms": first_ms,
+          "steps": rows, "mean_step_ms": mean_ms,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3,
+          "peak_memory_gb": peak_gb, "expected_launches_per_step": expected,
+          "flash_launches_by_variant": flash_variants,
+          "profiled_step_device_ms": device_ms, "profiled_step_kernels": kernels,
+          "top_kernels": [[k[:80], us / 1e3] for k, us in sorted(
+              kernel_us.items(), key=lambda kv: -kv[1])[:12]]})
+    losses = [first_loss] + [r["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"full-width training: a loss is not finite: {losses}")
+    if abs(first_loss - math.log(cfg.vocab_size)) > 2.0:
+        raise SystemExit(f"full-width training: first loss {first_loss} is far from ln V")
+    for r in rows:
+        if r["launches"] != expected:
+            raise SystemExit(f"train step {r['step']}: launches {r['launches']} != "
+                             f"expected {expected}")
+    if flash_variants != {"wgmma": expected["flash"] * TRAIN_STEPS, "f32": 0}:
+        raise SystemExit(f"bf16 training ran flash launches {flash_variants}")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "launches": launches, "mean_step_ms": mean_ms,
+            "device_ms": device_ms}
+
+
+def train_kernel_rows(train: dict, errs: dict, clock_hz: float) -> list[dict]:
+    """The backward kernels at the training path's shapes, launch for
+    launch over the timed steps, beside their plain versions; and the
+    flash backward (explicit PyTorch, not yet a kernel) beside the forward
+    kernel and SDPA's backward on the same inputs."""
+    cfg = train["cfg"]
+    gen = torch.Generator("cuda").manual_seed(8)
+    N, D, W = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.rnn_width or cfg.d_model
+    bf16 = torch.bfloat16
+    rows = []
+
+    x = torch.randn((N, D), generator=gen, device="cuda").to(bf16)
+    g = torch.randn((N, D), generator=gen, device="cuda").to(bf16)
+    scale = 0.2 * torch.randn((D,), generator=gen, device="cuda")
+    n = train["launches"]["rmsnorm_backward"]
+    rms_bytes = (3 * N * D * 2 + 2 * D * 4) * n
+    rms_ops = 12 * N * D * n  # squares, dot, gs, dx and dscale terms, f32
+    a, gates_b = model_gates(TRAIN_BATCH, TRAIN_SEQ, W, gen)
+    h, _last = rglru_kernel.rglru_scan_cuda(a, gates_b)
+    gh = torch.randn_like(h)
+    g_last = torch.zeros((TRAIN_BATCH, W), device="cuda")
+    k_rg = train["launches"]["rglru_backward"]
+    rg_bytes = 5 * TRAIN_BATCH * TRAIN_SEQ * W * 4 * k_rg  # a, h, gh in; da, db out
+    rg_ops = 4 * TRAIN_BATCH * TRAIN_SEQ * W * k_rg
+    for name, src, replaces, calls, plain, nbytes, ops, err in (
+        ("rmsnorm_backward", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
+         "src/repro/kernels/rmsnorm/kernel.py:21",
+         [lambda: rms_kernel.rms_norm_bwd_cuda(x, scale, g)] * n,
+         [lambda: rms_norm_backward_reference(x, scale, g)] * n,
+         rms_bytes, rms_ops, errs["rmsnorm_backward"]),
+        ("rglru_scan_backward", "src/repro_torch/kernels/rglru/csrc/rglru.cu",
+         "src/repro/kernels/rglru/kernel.py:32",
+         [lambda: rglru_kernel.rglru_scan_backward_cuda(a, h, None, gh, g_last)] * k_rg,
+         [lambda: rglru_scan_backward_reference(a, h, None, gh, g_last)] * k_rg,
+         rg_bytes, rg_ops, errs["rglru_backward"]),
+    ):
+        calls[0](), plain[0]()  # warm-up
+        torch.cuda.synchronize()
+        ms, paced = spun_device_ms(calls, clock_hz)
+        plain_ms, plain_paced = spun_device_ms(plain, clock_hz)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+        row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+               "launches": len(calls), "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "library_ms": None,  # no one PyTorch call computes this gradient
+               "host_paced": [k for k, p in (("ms", paced), ("plain_ms", plain_paced))
+                              if p]}
+        emit({"phase": "kernel_time", "kernel": name, "arch": cfg.name,
+              "path": "train_full", **{k: v for k, v in row.items()
+                                       if k not in ("name", "source", "replaces")}})
+        rows.append(row)
+
+    # Flash: the explicit backward at recurrentgemma-2b's shape, every call
+    # of the timed steps, beside the forward kernel and SDPA's backward.
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    n_fl = train["launches"]["flash"] // 2
+    q, k, v = flash_inputs(TRAIN_BATCH, H, KV, TRAIN_SEQ, TRAIN_SEQ, hd, bf16, gen, True)
+    out = flash_kernel.flash_attention_cuda(q, k, v, causal=True, window=cfg.window_size)
+    d_out = torch.randn_like(out)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    timed = {
+        "backward_ms": [lambda: attention_backward_reference(
+            q, k, v, out, d_out, causal=True, window=cfg.window_size)] * n_fl,
+        "forward_kernel_ms": [lambda: flash_kernel.flash_attention_cuda(
+            q, k, v, causal=True, window=cfg.window_size)] * n_fl,
+        "library_backward_ms": [lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), d_out, retain_graph=True)] * n_fl,
+    }
+    times = {}
+    for key, fns in timed.items():
+        fns[0]()
+        torch.cuda.synchronize()
+        times[key], _paced = spun_device_ms(fns, clock_hz)
+    pairs = visible_pairs(TRAIN_SEQ, cfg.window_size) * TRAIN_BATCH
+    bwd_ops_ms = 10 * H * hd * pairs * n_fl / BF16_FLOPS_PER_S * 1e3
+    bwd_bytes_ms = (2 * TRAIN_SEQ * (3 * H + 4 * KV) * hd * TRAIN_BATCH * n_fl
+                    / HBM_BYTES_PER_S * 1e3)  # q, o, dO, dq; k, v, dk, dv in bf16
+    steps = train["launches"]["flash"] // expected_train_launches(cfg)["flash"]
+    emit({"phase": "train_flash_backward", "arch": cfg.name, "route": "pytorch",
+          "calls": n_fl, "shape": [TRAIN_BATCH, H, KV, TRAIN_SEQ, hd],
+          "window": cfg.window_size, **times,
+          "bound_ms": max(bwd_ops_ms, bwd_bytes_ms),
+          "bound_by": "operations" if bwd_ops_ms >= bwd_bytes_ms else "bytes",
+          "backward_ms_per_step": times["backward_ms"] / steps,
+          "share_of_step_device_ms": times["backward_ms"] / steps / train["device_ms"],
+          "share_of_step_wall": times["backward_ms"] / steps / train["mean_step_ms"]})
+    return rows
 
 
 if __name__ == "__main__":

@@ -5,6 +5,13 @@ heads, as the JAX package's ``ops`` does); a CUDA tensor takes the CUDA
 kernel, which reads KV head ``h // (H / KV)`` in place, or raises.  Nothing
 falls back from one to the other.  The kernel masks ragged Sq and Skv
 itself, so no padding is needed.
+
+Where a gradient is wanted, the call goes through
+``FlashAttentionFunction``: its forward is the path above and its backward
+the explicit gradient ``attention_backward_reference`` in PyTorch on either
+device (P recomputed under the mask).  A hand-written backward kernel is
+queued work (ROADMAP queue 2).  Without autograd (serving), the forward is
+called directly.
 """
 
 from __future__ import annotations
@@ -12,12 +19,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import attention_reference
+from repro_torch.kernels.flash_attention.ref import (
+    attention_backward_reference,
+    attention_reference,
+)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: [B, H, Sq, D]; k, v: [B, KV, Skv, D] (KV divides H: GQA)."""
+def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
     if all(t.device.type == "cpu" for t in (q, k, v)):
         H, KV = q.shape[1], k.shape[1]
         if H % KV:
@@ -26,3 +34,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v = v.repeat_interleave(H // KV, dim=1)
         return attention_reference(q, k, v, causal=causal, window=window)
     return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = attention_backward_reference(
+            q, k, v, out, d_out, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: [B, H, Sq, D]; k, v: [B, KV, Skv, D] (KV divides H: GQA)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFunction.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window)

@@ -6,6 +6,12 @@ JAX package.  This module builds it at first use, binds its C entry point
 with ctypes and launches it on PyTorch's current stream with the plan of
 ``chunk_plan``.  ``LAUNCHES`` counts the launches (one a call), so a run can
 show that its work went through the kernel.
+
+The gradient needs no kernel of its own: the adjoint of the recurrence is
+the same recurrence run backwards, so ``rglru_scan_backward_cuda`` launches
+this kernel once on reversed inputs (``ref.rglru_scan_backward``).
+``BACKWARD_LAUNCHES`` counts those calls; each is also one of
+``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels._build import load_library
+from repro_torch.kernels.rglru.ref import rglru_scan_backward
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru.cu"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -32,6 +39,7 @@ CHUNKED_STRIPE = 32  # channels a CTA owns when S is chunked: a warp a chunk
 SEQUENTIAL_STRIPE = 128  # channels a CTA owns for one chunk
 
 LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 
@@ -124,3 +132,16 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
     with _count_lock:
         LAUNCHES += 1
     return h, h_last
+
+
+def rglru_scan_backward_cuda(a: torch.Tensor, h: torch.Tensor,
+                             h0: torch.Tensor | None, gh: torch.Tensor,
+                             g_last: torch.Tensor):
+    """Gradient of ``rglru_scan_cuda`` (``ref.rglru_scan_backward``) with the
+    reversed scan on this kernel: (da, db, dh0), da and db in f32."""
+    global BACKWARD_LAUNCHES
+    out = rglru_scan_backward(a, h, h0, gh, g_last, rglru_scan_cuda)
+    if a.shape[1]:
+        with _count_lock:
+            BACKWARD_LAUNCHES += 1
+    return out

@@ -65,3 +65,61 @@ def rglru_scan_chunked(a: torch.Tensor, b: torch.Tensor,
         hs[:, :, k] = h
     hs = hs.view(B, C * chunk, W)
     return hs[:, :S].to(a.dtype), hs[:, S - 1].clone()
+
+
+def _h_prev(h: torch.Tensor, h0: torch.Tensor | None) -> torch.Tensor:
+    """h_{t-1} for every t in f32: h0 (or zeros), then h_0 .. h_{S-2}."""
+    B, _S, W = h.shape
+    first = (torch.zeros((B, 1, W), dtype=torch.float32, device=h.device)
+             if h0 is None else h0.float()[:, None])
+    return torch.cat([first, h[:, :-1].float()], dim=1)
+
+
+def _grads(a, h, h0, g):
+    """(da, db, dh0) from the state gradient g [B, S, W] (f32)."""
+    da = g * _h_prev(h, h0)
+    dh0 = None if h0 is None else (a[:, 0].float() * g[:, 0]).to(h0.dtype)
+    return da, g, dh0
+
+
+def rglru_scan_backward(a: torch.Tensor, h: torch.Tensor,
+                        h0: torch.Tensor | None, gh: torch.Tensor,
+                        g_last: torch.Tensor, scan):
+    """Gradient of the scan h_t = a_t * h_{t-1} + b_t at (a, h0), given every
+    h it produced, for upstream gradients ``gh`` (of h) and ``g_last`` (of
+    h_last).  The adjoint is the same recurrence run backwards,
+
+        g_t = gh_t + a_{t+1} * g_{t+1},  g_{S-1} = gh_{S-1} + g_last,
+
+    which is ``scan`` itself on reversed inputs: the coefficients
+    a_1 .. a_{S-1}, 1 and the inputs gh, reversed, from h0 = g_last.  Then
+    db = g, da_t = g_t * h_{t-1} and dh0 = a_0 * g_0.  Returns (da, db, dh0)
+    in f32 (dh0 in h0's type, or None), the dtypes of a and b left to the
+    caller.
+    """
+    B, S, W = a.shape
+    if S == 0:
+        return torch.zeros_like(a, dtype=torch.float32), \
+            torch.zeros_like(a, dtype=torch.float32), \
+            None if h0 is None else torch.zeros_like(h0)
+    coeff = torch.cat([a[:, 1:].float(),
+                       torch.ones((B, 1, W), dtype=torch.float32, device=a.device)],
+                      dim=1)
+    g_rev, _ = scan(coeff.flip(1).contiguous(), gh.float().flip(1).contiguous(),
+                    g_last.float().contiguous())
+    return _grads(a, h, h0, g_rev.flip(1).float())
+
+
+def rglru_scan_backward_reference(a: torch.Tensor, h: torch.Tensor,
+                                  h0: torch.Tensor | None, gh: torch.Tensor,
+                                  g_last: torch.Tensor):
+    """The same gradient as an explicit sequential loop from t = S-1 down to
+    0, each step a product then a sum, each rounded."""
+    B, S, W = a.shape
+    g = torch.empty((B, S, W), dtype=torch.float32, device=a.device)
+    carry = g_last.float()
+    for t in range(S - 1, -1, -1):
+        carry = gh[:, t].float() + (a[:, t + 1].float() * carry if t + 1 < S
+                                    else carry)
+        g[:, t] = carry
+    return _grads(a, h, h0, g)

@@ -6,6 +6,11 @@ it at first use, binds its C entry point with ctypes and launches it on
 PyTorch's current stream with the plan of ``launch_plan``.  ``LAUNCHES``
 counts the launches, so a run can show that its work went through the
 kernel.
+
+The gradient is ``csrc/rmsnorm_bwd.cu`` (the TPU kernel had none), built
+and bound the same way, cut over threads with the forward's plan;
+``BACKWARD_LAUNCHES`` counts its calls (two launches each: the rows, then
+the column sums of ``dscale``).
 """
 
 from __future__ import annotations
@@ -21,14 +26,17 @@ import torch
 from repro_torch.kernels._build import load_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu"
+BACKWARD_SOURCE = SOURCE.with_name("rmsnorm_bwd.cu")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 UNIT_BYTES = 16  # x's bytes in one vector unit
 PER_THREAD = 2  # units a thread holds at most (kPer in the source)
 MAX_THREADS = 1024  # threads of one row at most
 BLOCK_THREADS = 256  # narrow rows share a block of up to this many threads
+BACKWARD_MAX_BLOCKS = 264  # two blocks an SM: a lane walks N / 264 rows
 
 LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 
@@ -70,10 +78,28 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
-                  eps: float = 1e-6) -> torch.Tensor:
-    """x: [N, D] contiguous f32/bf16 CUDA tensor; scale: [D] f32/bf16."""
-    global LAUNCHES
+def backward_blocks(rows: int, rows_per_block: int) -> int:
+    """Blocks of the backward's first pass: one lane (a row group) walks
+    every lanes-th row, so ``dscale``'s order of sums depends on N and the
+    plan only."""
+    return max(1, min(-(-rows // rows_per_block), BACKWARD_MAX_BLOCKS))
+
+
+@functools.cache
+def load_backward() -> ctypes.CDLL:
+    """Build (first call only) and bind the backward kernel's library."""
+    lib = load_library(BACKWARD_SOURCE)
+    fn = lib.rmsnorm_bwd_launch
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ptr] * 6 + [ctypes.c_int64, ctypes.c_int64] + [i32] * 6 \
+        + [ctypes.c_float, ptr]
+    fn.restype = ctypes.c_int
+    lib.rmsnorm_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.rmsnorm_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_rows(x: torch.Tensor, scale: torch.Tensor) -> None:
     for name, t in (("x", x), ("scale", scale)):
         if not t.is_cuda or t.dtype not in DTYPE_CODES or not t.is_contiguous():
             raise ValueError(
@@ -87,13 +113,24 @@ def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
             f"{scale.device}")
     if x.shape[0] >= 2**31:
         raise ValueError(f"at most 2**31 - 1 rows, got {x.shape[0]}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where a view starts off a 16-byte boundary."""
+    return t if t.data_ptr() % UNIT_BYTES == 0 else t.clone()
+
+
+def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """x: [N, D] contiguous f32/bf16 CUDA tensor; scale: [D] f32/bf16."""
+    global LAUNCHES
+    _check_rows(x, scale)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     plan = launch_plan(x.shape[1], x.dtype)
     if plan.unit > 1:  # vector loads: a view off a 16-byte boundary is copied
-        x, scale = (t if t.data_ptr() % UNIT_BYTES == 0 else t.clone()
-                    for t in (x, scale))
+        x, scale = _aligned(x), _aligned(scale)
     lib = load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -108,3 +145,42 @@ def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
     with _count_lock:
         LAUNCHES += 1
     return out
+
+
+def rms_norm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                      eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gradient of ``rms_norm_cuda`` at (x, scale) for the upstream gradient
+    ``g`` (x's shape and type).  Returns (dx in x's type, dscale in
+    scale's type)."""
+    global BACKWARD_LAUNCHES
+    _check_rows(x, scale)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device \
+            or not g.is_contiguous():
+        raise ValueError(
+            f"g must be a contiguous {tuple(x.shape)} {x.dtype} tensor on "
+            f"{x.device}, got {tuple(g.shape)} {g.dtype} on {g.device}")
+    dx = torch.empty_like(x)
+    dscale = torch.zeros_like(scale)
+    if x.numel() == 0:
+        return dx, dscale
+    plan = launch_plan(x.shape[1], x.dtype)
+    if plan.unit > 1:
+        x, g, scale = _aligned(x), _aligned(g), _aligned(scale)
+    blocks = backward_blocks(x.shape[0], plan.rows_per_block)
+    partial = torch.empty((blocks * plan.rows_per_block, x.shape[1]),
+                          dtype=torch.float32, device=x.device)
+    lib = load_backward()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rmsnorm_bwd_launch(
+            x.data_ptr(), g.data_ptr(), scale.data_ptr(), dx.data_ptr(),
+            dscale.data_ptr(), partial.data_ptr(), x.shape[0], x.shape[1],
+            DTYPE_CODES[x.dtype], DTYPE_CODES[scale.dtype], *plan, blocks, eps,
+            stream)
+    if err != 0:
+        raise RuntimeError(
+            "rmsnorm backward kernel launch failed: "
+            + lib.rmsnorm_bwd_error_string(err).decode())
+    with _count_lock:
+        BACKWARD_LAUNCHES += 1
+    return dx, dscale

@@ -1,4 +1,5 @@
-"""Shared layers: RMS norm, the SwiGLU MLP, embeddings and the LM head.
+"""Shared layers: RMS norm, the SwiGLU MLP, embeddings, the LM head and the
+chunked cross-entropy.
 
 The products are plain ``torch.matmul`` (the JAX package leaves them to
 XLA); the RMS norm goes through the fused kernel's entry point, which runs
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.rmsnorm.ops import rms_norm  # noqa: F401 (the models' norm)
 from repro_torch.models.common import ParamSpec, fan_in_normal
@@ -43,7 +45,10 @@ def mlp_specs(d: int, f: int, layers: int) -> dict:
 
 
 def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor, compute_dtype):
-    return embedding[tokens].to(compute_dtype)
+    # index_select, whose gradient on the card is deterministic under
+    # torch.use_deterministic_algorithms (a replayed step gives the same bits)
+    rows = torch.index_select(embedding, 0, tokens.reshape(-1))
+    return rows.reshape(*tokens.shape, embedding.shape[1]).to(compute_dtype)
 
 
 def lm_logits(x: torch.Tensor, head: torch.Tensor, compute_dtype,
@@ -52,3 +57,56 @@ def lm_logits(x: torch.Tensor, head: torch.Tensor, compute_dtype,
     if softcap > 0:  # in f32, as the JAX package's layers.lm_logits
         logits = softcap * torch.tanh(logits.float() / softcap)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+NEG_INF_F32 = -1e30
+
+
+def _chunk_ce_sum(xc, head, tc, vocab_size: int, softcap: float,
+                  compute_dtype) -> torch.Tensor:
+    """sum(logsumexp - target logit) over one chunk, in f32."""
+    logits = lm_logits(xc, head, compute_dtype, softcap).float()
+    pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab_size
+    logits = torch.where(pad, NEG_INF_F32, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, tc[..., None])[..., 0]
+    return torch.sum(lse - tgt)
+
+
+def chunked_cross_entropy(
+    x: torch.Tensor,
+    head: torch.Tensor,
+    targets: torch.Tensor,
+    *,
+    vocab_size: int,
+    seq_chunk: int = 512,
+    softcap: float = 0.0,
+    compute_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """Mean next-token CE without materialising [B, S, V] f32 logits.
+
+    ``x``: [B, S, D] final hidden states; ``head``: [D, V_padded];
+    ``targets``: [B, S] integer ids.  Walks the sequence in chunks: each
+    materialises only [B, chunk, V_padded] logits, and under autograd
+    recomputes them in the backward (``torch.utils.checkpoint``), so one
+    chunk's logits are live at a time.  Padded vocab entries are masked with
+    -1e30; the sum over chunks is f32, divided by B * S.
+    """
+    B, S, _D = x.shape
+    seq_chunk = min(seq_chunk, S)
+    if S % seq_chunk != 0:
+        raise ValueError(f"S={S} not divisible by seq_chunk={seq_chunk}")
+    targets = targets.long()
+    remat = torch.is_grad_enabled() and (x.requires_grad or head.requires_grad)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, seq_chunk):
+        args = (x[:, i:i + seq_chunk], head, targets[:, i:i + seq_chunk],
+                vocab_size, softcap, compute_dtype)
+        part = checkpoint(_chunk_ce_sum, *args, use_reentrant=False) if remat \
+            else _chunk_ce_sum(*args)
+        total = total + part
+    return total / (B * S)

@@ -10,7 +10,9 @@ SwiGLU MLP.  The other kinds (``moe``, ``mlstm``, ``slstm``) raise
 
 Parameters are the JAX package's tree: per block kind, each leaf is stacked
 ``[count, ...]`` over that kind's layers.  Layers run as a plain Python
-loop (no scan, no remat).  Every block calls the fused RMS norm twice
+loop (no scan).  Under autograd with ``cfg.remat`` (the default), each
+block is recomputed in the backward (``torch.utils.checkpoint``): the JAX
+package's ``remat_policy="nothing"``; its ``"dots"`` policy is not ported.  Every block calls the fused RMS norm twice
 (``ln1``, ``ln2``) and the forward ends in ``final_norm``; the prompt's
 attention goes through the flash-attention entry point and a ``rec``
 block's recurrence through the RG-LRU scan's, in prefill and decode alike.
@@ -24,13 +26,21 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, padded_size
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.common import ParamSpec, fan_in_normal
-from repro_torch.models.layers import embed_tokens, lm_logits, mlp_specs, rms_norm, swiglu
+from repro_torch.models.layers import (
+    chunked_cross_entropy,
+    embed_tokens,
+    lm_logits,
+    mlp_specs,
+    rms_norm,
+    swiglu,
+)
 
 ATTN_KINDS = ("attn", "local", "global")
 _NOT_PORTED = {  # kind -> (blocks, the ROADMAP queue 1 item that ports them)
@@ -233,7 +243,7 @@ def apply_block(cfg, kind, p, x, positions, *, cache=None, cache_len=None,
 
 
 def _layer(tree, i: int):
-    """Layer ``i`` of a stacked parameter or cache tree (views, no copy)."""
+    """Layer ``i`` of a stacked cache tree (views, no copy)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
@@ -244,21 +254,54 @@ def _embed(cfg: ModelConfig, params, tokens):
     return x * math.sqrt(cfg.d_model)
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked parameter tree, as views: one unbind a
+    leaf, whose gradient is one stack of the layers' gradients (indexing a
+    layer instead would give each layer's gradient a zero-filled copy of
+    the whole stack, summed over the layers)."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
 def _layers(cfg: ModelConfig, params):
     """(kind, layer parameters, index within the kind) in model order."""
-    counters = {k: 0 for k in cfg.layer_counts()}
+    stacks = {kind: _unstack(params["blocks"][kind], n)
+              for kind, n in cfg.layer_counts().items()}
+    counters = {k: 0 for k in stacks}
     for kind in cfg.pattern_for_layers:
         i = counters[kind]
         counters[kind] += 1
-        yield kind, _layer(params["blocks"][kind], i), i
+        yield kind, stacks[kind][i], i
+
+
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    return tree.requires_grad
+
+
+def _remat(cfg: ModelConfig, params) -> bool:
+    """Whether blocks are recomputed in the backward: under autograd only."""
+    if not (cfg.remat and torch.is_grad_enabled() and _requires_grad(params)):
+        return False
+    if cfg.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r} is not ported; the port "
+            f"recomputes whole blocks (\"nothing\")")
+    return True
 
 
 def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward to the final hidden states [B, S, D]."""
     x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    remat = _remat(cfg, params)
     for kind, p, _i in _layers(cfg, params):
-        x, _state = apply_block(cfg, kind, p, x, positions)
+        def block(x, p, kind=kind):
+            return apply_block(cfg, kind, p, x, positions)[0]
+        x = checkpoint(block, x, p, use_reentrant=False) if remat else block(x, p)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -266,6 +309,23 @@ def lm_head_weight(cfg: ModelConfig, params):
     if cfg.tie_embeddings:
         return params["embed"].T
     return params["lm_head"]
+
+
+def lm_loss(cfg: ModelConfig, params, batch):
+    """Mean next-token CE: (loss, {"ce_loss", "loss"}).  The MoE aux losses
+    and the frontend stubs' ``extra_embeds`` wait for their block families
+    (ROADMAP queue 1)."""
+    if "extra_embeds" in batch:
+        raise NotImplementedError(
+            "extra_embeds (frontend stubs) are not ported yet "
+            "(ROADMAP queue 1, 'the other block families')")
+    x = forward_hidden(cfg, params, batch["tokens"])
+    ce = chunked_cross_entropy(
+        x, lm_head_weight(cfg, params), batch["targets"],
+        vocab_size=cfg.vocab_size, seq_chunk=cfg.loss_seq_chunk,
+        softcap=cfg.logit_softcap, compute_dtype=_dtype(cfg.compute_dtype),
+    )
+    return ce, {"ce_loss": ce, "loss": ce}
 
 
 def logits_from_hidden(cfg, params, x):

@@ -1,0 +1,108 @@
+"""AdamW with global-norm clipping over a tree (nested dicts) of tensors.
+
+The state is the JAX package's: ``{"m": tree, "v": tree, "count": int32}``,
+the moments in ``AdamWConfig.state_dtype`` (float32 by default).  Unlike
+the reference, which returns new arrays, ``apply_updates`` writes the new
+parameters and moments into the tensors it is given (PyTorch's idiom: a
+3.3 B-parameter model's state would not fit twice on one card) and returns
+the same trees.  A caller that needs the old values copies them first; the
+checkpoint manager's ``save_async`` copies to the host before it returns.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    # Optimizer-state dtype: float32 (default) or bfloat16 (memory-lean mode).
+    state_dtype: str = "float32"
+
+
+def tree_leaves(tree: Any) -> list:
+    """Leaves of a nested dict, in sorted key order (the JAX package's
+    flattening order for dict trees)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """``fn`` on every leaf, visited in ``tree_leaves``'s order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def init_state(params: Any, cfg: AdamWConfig) -> dict:
+    dt = getattr(torch, cfg.state_dtype)
+    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
+    device = tree_leaves(params)[0].device
+    return {
+        "m": tree_map(zeros, params),
+        "v": tree_map(zeros, params),
+        "count": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+@torch.no_grad()
+def apply_updates(
+    params: Any,
+    grads: Any,
+    state: dict,
+    cfg: AdamWConfig,
+    lr: torch.Tensor,
+) -> tuple[Any, dict, dict]:
+    """One AdamW step, in place.  Returns (params, state, metrics)."""
+    count = state["count"] + 1
+    gnorm = global_norm(grads)
+    if cfg.clip_norm > 0:
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    else:
+        scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
+    countf = count.float()
+    b1c = 1.0 - torch.pow(cfg.b1, countf)
+    b2c = 1.0 - torch.pow(cfg.b2, countf)
+    lr = lr.to(gnorm.device)
+
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(state["m"]), tree_leaves(state["v"])):
+        # The reference's arithmetic, one rounding at a time; f32 moments
+        # are updated where they lie, so a leaf needs at most three
+        # temporaries of its size.
+        g = g.float() * scale
+        m1 = m.mul_(cfg.b1) if m.dtype == torch.float32 else m.float() * cfg.b1
+        m1.add_(g * (1 - cfg.b1))
+        v1 = v.mul_(cfg.b2) if v.dtype == torch.float32 else v.float() * cfg.b2
+        sq = g * (1 - cfg.b2)
+        v1.add_(sq.mul_(g))
+        del g, sq
+        upd = torch.div(v1, b2c).sqrt_().add_(cfg.eps)
+        upd = torch.div(m1, b1c).div_(upd)
+        upd.add_(cfg.weight_decay * p.float()).mul_(lr)
+        if m1 is not m:
+            m.copy_(m1)
+        if v1 is not v:
+            v.copy_(v1)
+        del m1, v1
+        if p.dtype == torch.float32:
+            p.sub_(upd)
+        else:
+            p.copy_(p.float() - upd)
+    state["count"] = count
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    return params, state, metrics

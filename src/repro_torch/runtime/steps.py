@@ -1,20 +1,25 @@
-"""Step-function factories for decoder-only LMs (the serving half of the
-JAX package's ``runtime/steps.py``).
+"""Step-function factories for decoder-only LMs (the JAX package's
+``runtime/steps.py`` at one device).
 
+* ``make_train_step``   — forward, backward and AdamW under warmup-cosine;
 * ``make_prefill_step`` — full-sequence forward to last-token logits;
 * ``make_decode_step``  — one token against the KV cache.
 
 PyTorch runs eagerly, so a factory returns a plain closure; there is no
-``jit`` and no sharding.  Training, encoder-decoder models and the dry-run
-structs are not ported yet (ROADMAP queue 1).
+``jit`` and no sharding.  Encoder-decoder models, ``tp > 1`` and the
+dry-run structs are not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm as lm_mod
+from repro_torch.optim import adamw
+from repro_torch.optim.schedule import warmup_cosine
 
 
 def _decoder_only(cfg: ModelConfig) -> None:
@@ -27,6 +32,58 @@ def _decoder_only(cfg: ModelConfig) -> None:
 def model_param_specs(cfg: ModelConfig):
     _decoder_only(cfg)
     return lm_mod.lm_param_specs(cfg)
+
+
+def loss_fn_for(cfg: ModelConfig) -> Callable:
+    _decoder_only(cfg)
+    return lambda p, b: lm_mod.lm_loss(cfg, p, b)
+
+
+# ---------------------------------------------------------------------------
+# Train
+# ---------------------------------------------------------------------------
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    opt_cfg: adamw.AdamWConfig,
+    *,
+    peak_lr: float = 3e-4,
+    warmup_steps: int = 100,
+    total_steps: int = 10000,
+) -> Callable:
+    """``train_step(params, opt_state, batch, step) -> (params, opt_state,
+    metrics)`` with metrics ``loss``, ``ce_loss``, ``grad_norm`` and ``lr``
+    (0-d tensors).  The parameters and moments are updated in place
+    (``adamw.apply_updates``); the gradients live only inside the call."""
+    loss_fn = loss_fn_for(cfg)
+
+    def train_step(params, opt_state, batch, step):
+        leaves = adamw.tree_leaves(params)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        try:
+            loss, metrics = loss_fn(params, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            for leaf in leaves:
+                leaf.requires_grad_(False)
+        flat = iter(torch.zeros_like(p) if g is None else g
+                    for p, g in zip(leaves, grads))
+        grads = adamw.tree_map(lambda _p: next(flat), params)
+        lr = warmup_cosine(step, peak_lr=peak_lr, warmup_steps=warmup_steps,
+                           total_steps=total_steps)
+        params, opt_state, opt_metrics = adamw.apply_updates(
+            params, grads, opt_state, opt_cfg, lr)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return params, opt_state, {**metrics, **opt_metrics}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serve
+# ---------------------------------------------------------------------------
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:

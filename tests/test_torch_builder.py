@@ -333,7 +333,7 @@ def test_work_function_error_propagates(pkg):
 
 
 @pytest.mark.parametrize("backend", ["cluster", "service"])
-def test_process_backends_are_not_ported_yet(backend, jax_qs):
+def test_process_backends_build_as_the_jax_package_does(backend, jax_qs):
     """The warm node pool (``backend="service"``) and the cluster backend's
     ssh fan-out (``hosts=``), once left for a later slice, build as the JAX
     package's do: the same application class over the same deployment

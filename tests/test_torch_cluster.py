@@ -512,7 +512,7 @@ def test_node_loader_cli(args, code, text):
         assert len(out.stdout.strip().splitlines()) == 1
 
 
-def test_chaos_option_is_not_ported_yet():
+def test_chaos_option_kills_a_node_and_the_result_stays_exact():
     """``chaos=`` on the cluster backend, once left for a later slice, arms
     its fault plan over the one-shot run: the node it kills mid-job is
     reaped, its items are requeued and the result stays exact

@@ -69,7 +69,14 @@ def test_every_port_module_imports_without_jax_triton_or_repro():
                  "repro_torch.cluster.deploy.local",
                  "repro_torch.cluster.deploy.inprocess",
                  "repro_torch.cluster.peer", "repro_torch.cluster.node_loader",
-                 "repro_torch.cluster.host_loader", "repro_torch.cluster.spawn"):
+                 "repro_torch.cluster.host_loader", "repro_torch.cluster.spawn",
+                 "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+                 "repro_torch.optim.compression", "repro_torch.data.pipeline",
+                 "repro_torch.checkpoint.checkpoint",
+                 "repro_torch.runtime.executor", "repro_torch.launch.train",
+                 "repro_torch.train_lm",
+                 "repro_torch.kernels.flash_attention.ref",
+                 "repro_torch.kernels.rmsnorm.ref"):
         assert name in seen["modules"]
 
 
