@@ -50,14 +50,31 @@ per source, all at once) and drives the port's paths on the card:
    then ``make_train_step`` at recurrentgemma-2b's full width and depth
    (26 layers, bf16 compute, f32 parameters and AdamW state, B 1 x S 2048),
    where each step's kernel launches are counted.
+5. The other block families, at full width: olmoe-1b-7b (MoE, 64 experts
+   top-8) cut to 2 layers in float32 (engine == offline greedy), then
+   served at full depth in bf16 with its prompts' drop fractions and a
+   profiled repeat that splits the device time into attention, routing
+   and dispatch, expert products and the rest; llama4-maverick cut to one
+   period (attn, moe) in bf16 (engine == offline greedy); xlstm-350m cut to
+   one mLSTM and one sLSTM layer in float32 (engine == offline greedy),
+   then served at full depth in bf16 and trained 2 steps; olmoe-1b-7b
+   trained at 6 layers under deterministic algorithms (a replayed forward
+   and backward bit for bit); seamless-m4t-large-v2 cut to 4 + 4 layers
+   in float32 (greedy decode steps == the full forward within 2e-4), then
+   encoding, decoding and one train step at full depth; internvl2-2b
+   trained at full depth with its ViT stub's 256 embeddings, and one bf16
+   prefill step with them.  Every phase's RMS-norm and flash launches must
+   equal the counts its layer kinds give; each path's launches are then
+   replayed at their shapes (``by_path`` in the kernels line).
 
 Each phase prints one JSON line; any failure exits non-zero.  The line
 before the last lists every kernel with its launches on its path, its
 device time at that path's shapes, its bound, its plain version's time and
 a library call's (RMS norm and RG-LRU also split into their prefill and
 decode-tick launches, beside the time of as many launches at the least
-shape; the two backward kernels at the training path's shapes); the last
-line is the run's verdict.
+shape; the two backward kernels at the training path's shapes; RMS norm
+and flash also ``by_path``, their launches and device time on each path
+of part 5); the last line is the run's verdict.
 
 Without a CUDA device, or without the repository around it, it exits
 non-zero and prints no result.
@@ -65,6 +82,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import importlib.metadata
 import json
@@ -123,6 +141,7 @@ from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
     rms_norm_backward_reference,
     rms_norm_reference,
 )
+from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import recurrent as rec_mod  # noqa: E402
 from repro_torch.models.common import count_params, init_params  # noqa: E402
@@ -180,12 +199,16 @@ PROFILED_ITEMS = 100  # work items under torch.profiler
 
 # RMS norm checks: [N, D], and the (x, scale) dtypes the model passes it;
 # yi-9b's D = 4096 and recurrentgemma-2b's D = 2560 at a tick's 4 rows, a
-# prompt's and one row.
+# prompt's and one row; then the other families' widths: 1,024 (xlstm-350m,
+# seamless-m4t-large-v2), 2,048 (olmoe-1b-7b, internvl2-2b) and 5,120
+# (llama4-maverick) at a tick's rows and a prompt's or training step's.
 RMS_SHAPES = [(9, 77), (128, 4096), (1000, 4096), (4, 4096), (1, 4096),
-              (4, 2560), (3000, 2560)]
+              (4, 2560), (3000, 2560), (4, 1024), (2048, 1024), (4, 2048),
+              (2048, 2048), (1, 5120), (512, 5120)]
 # Row invariance: the first rows of a [1000, D] launch, normalised again in
-# launches of 1 and 4 rows, must come out the same bits, at both served D.
-RMS_INVARIANCE_ROWS, RMS_SERVED_D = (1, 4, 1000), (4096, 2560)
+# launches of 1 and 4 rows, must come out the same bits, at every served D.
+RMS_INVARIANCE_ROWS = (1, 4, 1000)
+RMS_SERVED_D = (4096, 2560, 2048, 1024, 5120)
 RMS_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
               (torch.bfloat16, torch.bfloat16)]
 RMS_TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}
@@ -201,6 +224,17 @@ FLASH_OTHER = [(1, 8, 4, 300, 300, 256, True, 64), (2, 4, 2, 50, 50, 16, True, 3
                (1, 4, 2, 100, 150, 64, False, 0)]
 # recurrentgemma-2b's local attention: MQA, head_dim 256, window 2048 < S.
 FLASH_RG = [(1, 10, 1, 3000, 3000, 256, True, 2048)]
+# The other families, in the model's layout: seamless-m4t-large-v2's encoder
+# (non-causal), its cross-attention (256 queries over 1,024 encoder keys)
+# and its decoder (causal) at head_dim 64; olmoe-1b-7b's MHA at S 2,048;
+# llama4-maverick's GQA 40/8 (a group of 5) at 512; internvl2-2b's GQA 16/8
+# at S 2,048, all three at head_dim 128.
+FLASH_SLICE = [(1, 16, 16, 1024, 1024, 64, False, 0),
+               (1, 16, 16, 256, 1024, 64, False, 0),
+               (1, 16, 16, 1024, 1024, 64, True, 0),
+               (1, 16, 16, 2048, 2048, 128, True, 0),
+               (1, 40, 8, 512, 512, 128, True, 0),
+               (1, 16, 8, 2048, 2048, 128, True, 0)]
 # The tiled bf16 kernel's edges, in the model's layout: a prompt shorter
 # than one tile at head_dim 128 and 256; a window that is not a multiple of
 # the key tile; recurrentgemma's 10:1 MQA at S = 1,000 (yi-9b's group of 8
@@ -237,13 +271,14 @@ RG_CHECK_LAYERS, RG_MAX_SEQ = 3, 4096
 RG_CHECK_PROMPTS = ((6, (20, 2049)), (2, (2049, 3001)))
 RG_SERVE_PROMPTS = ((12, (64, 1025)), (4, (2100, 3501)))
 
-# Training.  Backward checks: RMS norm at both served widths and a ragged
+# Training.  Backward checks: RMS norm at every trained width and a ragged
 # one; RG-LRU at S around the chunk length and the training path's S; flash
 # at recurrentgemma-2b's training shape, a small GQA window and yi-9b's
 # grouping.  The trainer phase runs recurrentgemma-2b's smoke config in
 # float32; the full-width phase the whole model at B 1 x S 2048, cut from
 # the train_4k shape (S 4096, batch 256) to fit one card's 80 GB.
-RMS_BWD_SHAPES = [(9, 77), (2048, 2560), (2048, 4096), (4, 64)]
+RMS_BWD_SHAPES = [(9, 77), (2048, 2560), (2048, 4096), (4, 64), (2048, 1024),
+                  (2048, 2048), (512, 5120)]
 RGLRU_BWD_S, RGLRU_BWD_W = (1, 16, 17, 2048), 2560
 FLASH_BWD = [(1, 10, 1, 2048, 256, 2048), (1, 4, 2, 50, 16, 32), (1, 32, 4, 1000, 128, 0)]
 # Gradients are compared as |got - want| <= tol * max(1, |want|): at S 2048
@@ -252,6 +287,28 @@ FLASH_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 TRAINER_SEQ, TRAINER_BATCH, TRAINER_STEPS = 64, 4, 8
 TRAINER_CKPT_EVERY, TRAINER_CRASH_AT, TRAINER_TOL = 3, 5, 1e-4
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2048, 1, 3
+
+# The other block families, after the training phases, all at full width.
+# olmoe-1b-7b: a 2-layer float32 check at the config's capacity factor of
+# 1.25, then full depth in bf16 with the serve phases' request mix.
+# llama4-maverick: one period (attn, moe) of 48 layers, bf16 (37 GB),
+# engine with one slot against offline greedy: a batch-1 tick rounds as the
+# offline decode does, where bf16 batch-4 ticks would not.  xlstm-350m: a
+# check cut to one mLSTM and one sLSTM layer in float32, then full depth in
+# bf16, and 2 train steps.  olmoe-1b-7b trained at 6 of 16 layers (f32
+# state of full depth, about 111 GB, is more than the card holds).
+# seamless-m4t-large-v2: a 4 + 4-layer float32 check, then full depth in
+# bf16 and one train step.  internvl2-2b: full depth, trained with its 256
+# ViT-stub embeddings, and one bf16 prefill step with them.
+OLMOE, MAVERICK = "olmoe-1b-7b", "llama4-maverick-400b-a17b"
+XLSTM, SEAMLESS, VLM = "xlstm-350m", "seamless-m4t-large-v2", "internvl2-2b"
+MOE_CHECK_LAYERS, MAVERICK_LAYERS, MOE_TRAIN_LAYERS = 2, 2, 6
+MAVERICK_REQUESTS, MAVERICK_PROMPT, MAVERICK_MAX_SEQ = 4, (64, 513), 1024
+XLSTM_CHECK_PATTERN = ("mlstm", "slstm")
+XLSTM_TRAIN_STEPS, MOE_TRAIN_STEPS, VLM_TRAIN_STEPS = 2, 3, 2
+ENCDEC_CHECK_LAYERS, ENCDEC_CHECK_FRAMES, ENCDEC_CHECK_TOKENS = 4, 64, 12
+ENCDEC_TOL = 2e-4  # tests/test_archs.py::test_encdec_decode_matches_forward
+ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_NEW, ENCDEC_TRAIN_SEQ = 2, 1024, 32, 1024
 
 
 def emit(obj: dict) -> None:
@@ -704,19 +761,9 @@ def run_service_jobs(expected: dict, threads_wall_s: list[float]) -> None:
     emit({"phase": "job_service", **out})
 
 
-def main() -> None:
-    kind = torch.cuda.get_device_name(0)
-    card = nvidia_smi("name,power.limit")
-    max_clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
-    # Full float32 products and convolutions in the float32 checks.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    emit({"phase": "card", "nvidia_smi": card, "kind": kind,
-          "max_sm_clock_mhz": max_clock_hz / 1e6,
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          # the process transport's optional codecs: without them the
-          # work function ships by plain pickle and payloads by pickle
-          **{name: installed_version(name) for name in ("cloudpickle", "msgpack")}})
+def build_kernels() -> None:
+    """Every kernel's library, one nvcc each, all at once; beside them the
+    ptxas report of the sources whose registers and spills are watched."""
 
     def timed_load(load):
         t = time.perf_counter()
@@ -739,6 +786,22 @@ def main() -> None:
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "per_kernel_s": seconds,
               **{key: f.result() for key, f in ptxas.items()}})
+
+
+def main() -> None:
+    kind = torch.cuda.get_device_name(0)
+    card = nvidia_smi("name,power.limit")
+    max_clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    # Full float32 products and convolutions in the float32 checks.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "card", "nvidia_smi": card, "kind": kind,
+          "max_sm_clock_mhz": max_clock_hz / 1e6,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          # the process transport's optional codecs: without them the
+          # work function ships by plain pickle and payloads by pickle
+          **{name: installed_version(name) for name in ("cloudpickle", "msgpack")}})
+    build_kernels()
 
     chunk = mandel_kernel.chunk()
     k_edge = [(h, w, n) for h, w in K_EDGE_SHAPES
@@ -879,14 +942,14 @@ def main() -> None:
 
     errs = {"rmsnorm": check_rmsnorm(), "flash": check_flash(),
             "rglru": check_rglru()}
-    serve_check(YI, "serve_check", YI_CHECK_LAYERS, YI_CHECK_MAX_SEQ,
+    serve_check(YI, "serve_check", cut(YI, YI_CHECK_LAYERS), YI_CHECK_MAX_SEQ,
                 lambda rng, vocab: make_requests(
                     rng, CHECK_REQUESTS, YI_CHECK_PROMPT, CHECK_NEW, vocab))
     serves = {YI: serve_full(YI, "serve", YI_SERVE_MAX_SEQ,
                              lambda rng, vocab: make_requests(
                                  rng, SERVE_REQUESTS, YI_SERVE_PROMPT,
                                  SERVE_NEW, vocab), profile=False)}
-    serve_check(RG, "serve_check_rg", RG_CHECK_LAYERS, RG_MAX_SEQ,
+    serve_check(RG, "serve_check_rg", cut(RG, RG_CHECK_LAYERS), RG_MAX_SEQ,
                 lambda rng, vocab: requests_of_lengths(
                     rng, RG_CHECK_PROMPTS, CHECK_NEW, vocab))
     serves[RG] = serve_full(RG, "serve_rg", RG_MAX_SEQ,
@@ -911,6 +974,14 @@ def main() -> None:
     train = train_full()
     rows += train_kernel_rows(train, bwd_errs,
                               float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6)
+
+    # The other block families, each path's launches counted from zero;
+    # their RMS-norm and flash launches join those rows under "by_path".
+    new_paths = by_path(other_families())
+    for row in rows:
+        key = {"rmsnorm": "rmsnorm", "flash_attention_forward": "flash"}.get(row["name"])
+        if key:
+            row["by_path"] = new_paths[key]
     print(card, flush=True)
     emit({"kernels": [mandel_row, *rows]})
     print(json.dumps({"ok": True, "device": {
@@ -1036,7 +1107,7 @@ def check_flash() -> float:
     worst = 0.0
     cases = ([(c, False) for c in FLASH_SWEEP] + [(c, True) for c in FLASH_YI]
              + [(c, False) for c in FLASH_OTHER] + [(c, True) for c in FLASH_RG]
-             + [(c, c[6]) for c in FLASH_EDGE])
+             + [(c, c[6]) for c in FLASH_EDGE] + [(c, True) for c in FLASH_SLICE])
     before = dict(flash_kernel.LAUNCHES_BY_VARIANT)
     for dtype in (torch.float32, torch.bfloat16):
         for (b, h, kv, sq, skv, d, causal, window), layout in cases:
@@ -1153,13 +1224,21 @@ def check_rglru() -> float:
 
 
 def randomize_small_params(params, gen) -> None:
-    """Nonzero RMS-norm scales, so that (1 + scale) is exercised, and
-    nonzero RG-LRU gate biases."""
-    leaves = [params["final_norm"]]
-    for block in params["blocks"].values():
-        leaves += [block["ln1"], block["ln2"]]
-        if "rec" in block:
-            leaves += [block["rec"]["rglru"]["b_a"], block["rec"]["rglru"]["b_x"]]
+    """Nonzero RMS-norm scales, so that (1 + scale) is exercised, nonzero
+    RG-LRU gate biases and xLSTM group-norm scales; for an encoder-decoder,
+    every norm of its encoder and decoder."""
+    stacks = ([params["encoder"], params["decoder"]] if "encoder" in params
+              else [params])
+    leaves = []
+    for stack in stacks:
+        leaves.append(stack["final_norm"])
+        blocks = stack["blocks"]
+        for block in ([blocks] if "encoder" in params else blocks.values()):
+            leaves += [block[k] for k in ("ln1", "ln2", "ln_x") if k in block]
+            if "rec" in block:
+                leaves += [block["rec"]["rglru"]["b_a"], block["rec"]["rglru"]["b_x"]]
+            if "core" in block:
+                leaves.append(block["core"]["norm"])
     for leaf in leaves:
         leaf.copy_(0.2 * torch.randn(leaf.shape, generator=gen, device="cuda"))
 
@@ -1183,38 +1262,67 @@ def requests_of_lengths(rng, groups, max_new, vocab):
             for rid, n in enumerate(lens)]
 
 
-def serve_check(arch: str, phase: str, layers: int, max_seq: int, make) -> None:
-    """Engine completions equal offline greedy decode: ``arch`` at full
-    width, cut to ``layers`` layers, float32."""
-    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
-                              compute_dtype="float32")
-    params = init_params(lm.lm_param_specs(cfg), 0, "cuda", torch.float32)
+def cut(arch: str, layers: int, **changes):
+    """``arch`` at full width cut to ``layers`` layers, in float32 unless
+    ``changes`` say otherwise."""
+    return dataclasses.replace(get_config(arch), num_layers=layers,
+                               **{"compute_dtype": "float32", **changes})
+
+
+def serve_check(arch: str, phase: str, cfg, max_seq: int, make,
+                slots: int = SERVE_SLOTS) -> dict:
+    """Engine completions equal offline greedy decode: ``cfg`` (``arch``
+    cut in depth, weights in its compute dtype).  The kernels' launches
+    over the engine's run and the offline decodes must equal the expected
+    counts, every flash launch through the variant of the dtype."""
+    dtype = getattr(torch, cfg.compute_dtype)
+    params = init_params(lm.lm_param_specs(cfg), 0, "cuda", dtype)
     randomize_small_params(params, torch.Generator("cuda").manual_seed(2))
-    engine = ServingEngine(cfg, params, max_slots=SERVE_SLOTS, max_seq=max_seq)
+    engine = ServingEngine(cfg, params, max_slots=slots, max_seq=max_seq)
     reqs = make(np.random.default_rng(0), cfg.vocab_size)
+    torch.cuda.synchronize()
+    reset_launches()
     for r in reqs:
         engine.submit(r)
     t0 = time.perf_counter()
+    ticks = 0
+    while engine.queue or (engine.slot_rid >= 0).any():
+        ticks += engine.step() > 0
     done = engine.shutdown()
     wall_s = time.perf_counter() - t0
-    mismatched = []
+    mismatched, offline_steps = [], 0
     for c in done:
         prompt, gen = c.tokens[:c.prompt_len], c.tokens[c.prompt_len:]
+        offline_steps += len(gen) - 1
         if gen != offline_greedy(cfg, params, prompt, len(gen), max_seq):
             mismatched.append(c.rid)
-    ok = len(done) == len(reqs) and not mismatched
+    torch.cuda.synchronize()
+    launches = {name: module.LAUNCHES for name, module in KERNELS.items()}
+    variants = dict(flash_kernel.LAUNCHES_BY_VARIANT)
+    expected = expected_launches(cfg, 2 * len(done), ticks + offline_steps)
+    variant = flash_kernel.VARIANTS[dtype]
+    want_variants = {v: expected["flash"] if v == variant else 0 for v in variants}
+    ok = (len(done) == len(reqs) and not mismatched and launches == expected
+          and variants == want_variants)
     lens = sorted(c.prompt_len for c in done)
     emit({"phase": phase, "arch": arch, "d_model": cfg.d_model,
           "num_layers": cfg.num_layers, "layer_kinds": cfg.layer_counts(),
-          "depth_cut": f"{layers} of {get_config(arch).num_layers} layers",
-          "compute_dtype": cfg.compute_dtype, "requests": len(done),
+          "depth_cut": f"{cfg.num_layers} of {get_config(arch).num_layers} layers",
+          "compute_dtype": cfg.compute_dtype, "requests": len(done), "slots": slots,
           "max_seq": max_seq, "prompt_lens": lens,
           "prompts_past_window": sum(n > cfg.window_size > 0 for n in lens),
+          "engine_ticks": ticks, "offline_decode_steps": offline_steps,
+          "launches": launches, "expected_launches": expected,
+          "flash_launches_by_variant": variants,
           "mismatched_rids": mismatched, "wall_s": wall_s, "ok": ok})
     if not ok:
-        raise SystemExit(f"{arch}: engine != offline greedy decode for {mismatched}")
+        raise SystemExit(f"{arch}: engine != offline greedy decode for {mismatched}, "
+                         f"or launches {launches} {variants} != {expected}")
     del engine, params
     torch.cuda.empty_cache()
+    return {"cfg": cfg, "prefill_lens": [c.prompt_len for c in done] * 2,
+            "tick_rows": [slots] * ticks + [1] * offline_steps,
+            "launches": launches}
 
 
 KERNELS = {"mandelbrot": mandel_kernel, "rmsnorm": rms_kernel,
@@ -1228,22 +1336,43 @@ def reset_launches() -> None:
     flash_kernel.LAUNCHES_BY_VARIANT = dict.fromkeys(flash_kernel.LAUNCHES_BY_VARIANT, 0)
 
 
+def block_norms(cfg, kind: str) -> int:
+    """RMS-norm launches of one block of ``kind``: ln1; ln2 where the block
+    has an FFN (a ``moe`` block always, an attention or ``rec`` block where
+    d_ff > 0, an xLSTM block never); q and k norms in attention blocks of a
+    config with qk-norm."""
+    n = 1 + (kind == "moe" or (kind not in ("mlstm", "slstm") and cfg.d_ff > 0))
+    return n + 2 * (kind in lm.ATTN_KINDS and cfg.use_qk_norm)
+
+
+def pass_norms(cfg) -> int:
+    """RMS-norm launches of one pass over the whole model: every block's
+    and final_norm."""
+    return sum(block_norms(cfg, kind) * n for kind, n in cfg.layer_counts().items()) + 1
+
+
+def attention_layers(cfg) -> int:
+    return sum(n for kind, n in cfg.layer_counts().items() if kind in lm.ATTN_KINDS)
+
+
 def expected_launches(cfg, prefills: int, ticks: int) -> dict[str, int]:
-    """Per prefill pass and per tick: ln1 and ln2 in every block plus
-    final_norm; one flash launch per attention layer per prefill; one
-    RG-LRU launch per rec layer per prefill and per tick."""
-    counts = cfg.layer_counts()
-    rec = counts.get("rec", 0)
+    """Per prefill pass and per tick: ``pass_norms``; one flash launch per
+    attention-kind layer (``moe`` included) per prefill; one RG-LRU launch
+    per rec layer per prefill and per tick.  xLSTM layers launch no kernel
+    but their norm."""
+    rec = cfg.layer_counts().get("rec", 0)
     return {"mandelbrot": 0,
-            "rmsnorm": (2 * cfg.num_layers + 1) * (prefills + ticks),
-            "flash": (cfg.num_layers - rec) * prefills,
+            "rmsnorm": pass_norms(cfg) * (prefills + ticks),
+            "flash": attention_layers(cfg) * prefills,
             "rglru": rec * (prefills + ticks)}
 
 
 def serve_full(arch: str, phase: str, max_seq: int, make,
                profile: bool) -> dict:
     """``arch`` at full width and depth in bf16, through ServingEngine;
-    with ``profile``, a profiled repeat follows."""
+    with ``profile``, a profiled repeat follows.  For a MoE model, each
+    prompt's forward is run once more after the counted run to read its
+    slots' drop fraction."""
     cfg = get_config(arch)
     specs = lm.lm_param_specs(cfg)
     t0 = time.perf_counter()
@@ -1322,25 +1451,102 @@ def serve_full(arch: str, phase: str, max_seq: int, make,
         raise SystemExit(f"{arch}: bf16 flash launches by variant {flash_variants}, "
                          f"expected all {expected['flash']} through wgmma")
     del engine
+    moe_layers = cfg.layer_counts().get("moe", 0)
+    if moe_layers:
+        drops = []
+        for r in reqs:
+            _x, aux = lm.forward_hidden(cfg, params, torch.tensor(
+                [r.prompt], dtype=torch.int64, device="cuda"))
+            drops.append(float(aux["moe_drop_fraction"]) / moe_layers)
+        emit({"phase": phase + "_drops", "arch": arch,
+              "capacity_factor": cfg.capacity_factor,
+              "prompt_lens": [len(r.prompt) for r in reqs],
+              "drop_fraction_per_prompt": drops,
+              "drop_fraction_mean": statistics.mean(drops),
+              "decode_capacity_per_row_and_expert": max(
+                  int(cfg.capacity_factor * cfg.experts_per_token / cfg.num_experts), 1)})
     if profile:
         profile_serve(cfg, params, reqs, wall_s, max_seq, phase + "_profile")
     del params
     torch.cuda.empty_cache()
     return {"cfg": cfg, "prompt_lens": prompt_lens, "ticks": ticks,
-            "launches": launches, "flash_variants": flash_variants}
+            "launches": launches, "flash_variants": flash_variants,
+            "prefill_lens": prompt_lens, "tick_rows": [SERVE_SLOTS] * ticks}
 
 
-def kernel_events(prof) -> tuple[dict[str, float], int]:
-    """Device µs by kernel name, and the number of kernels, of a profile."""
+# The model's profiler spans (``record_function``): their device-side
+# annotations are ranges, not kernels.
+SPANS = ("attention", "moe_ffn", "moe_experts")
+
+
+def device_events(prof) -> tuple[dict[str, float], int, dict[str, dict[str, float]]]:
+    """Device µs by kernel name, the number of kernels, and each model
+    span's device time, read from the profiler's raw events.
+
+    A span's ``kernels_ms`` sums the kernels launched by the host ops that
+    start inside its host-side range on the same thread; its ``range_ms``
+    is the device-side range's length, idle gaps inside it included.
+    ``key_averages()`` gives the same sums, but first builds a Python tree
+    of every event: 88–110 s for a serve run's 125–153 k kernels on the
+    H100."""
+    cuda = torch.autograd.DeviceType.CUDA
     kernel_us: dict[str, float] = {}
-    count = 0
+    spans = {name: {"kernels_ms": 0.0, "range_ms": 0.0, "calls": 0} for name in SPANS}
+    ranges: dict[str, dict[int, list]] = {name: {} for name in SPANS}
+    op_start: dict[int, tuple[int, int]] = {}  # host op id -> (thread, start ns)
+    kernels: list[tuple[int, int]] = []  # (launching op id, ns)
+    for evt in prof.profiler.kineto_results.events():
+        name = evt.name()
+        if evt.device_type() == cuda:
+            if name in SPANS:
+                spans[name]["range_ms"] += evt.duration_ns() / 1e6
+                continue
+            kernel_us[name] = kernel_us.get(name, 0.0) + evt.duration_ns() / 1e3
+            kernels.append((evt.linked_correlation_id(), evt.duration_ns()))
+        elif evt.linked_correlation_id() == 0:
+            op_start[evt.correlation_id()] = (evt.start_thread_id(), evt.start_ns())
+            if name in SPANS:
+                spans[name]["calls"] += 1
+                ranges[name].setdefault(evt.start_thread_id(), []).append(
+                    (evt.start_ns(), evt.end_ns()))
+    for name, by_thread in ranges.items():
+        for r in by_thread.values():
+            r.sort()
+        starts = {tid: [a for a, _ in r] for tid, r in by_thread.items()}
+        ns = 0
+        for op, dur in kernels:
+            tid, t0 = op_start.get(op, (None, 0))
+            if tid in by_thread:
+                i = bisect.bisect_right(starts[tid], t0) - 1
+                if i >= 0 and t0 <= by_thread[tid][i][1]:
+                    ns += dur
+        spans[name]["kernels_ms"] = ns / 1e6
+    return kernel_us, len(kernels), spans
+
+
+def check_device_events(prof, device_ms: float, kernels: int, spans, phase: str) -> None:
+    """Hold ``device_events`` to ``key_averages()`` on a profile small
+    enough for the latter (one decode tick): the same kernels, and the same
+    device time in all and in each span within 0.1 %."""
+    cuda = torch.autograd.DeviceType.CUDA
+    avg_ms, avg_kernels = 0.0, 0
+    avg_spans = {name: 0.0 for name in SPANS}
     for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue  # a CPU op's device time is its kernels', counted here
-        us = float(getattr(evt, "self_device_time_total", 0.0) or 0.0)
-        kernel_us[evt.key] = kernel_us.get(evt.key, 0.0) + us
-        count += evt.count
-    return kernel_us, count
+        if getattr(evt, "device_type", None) == cuda:
+            if evt.key not in SPANS:
+                avg_ms += float(getattr(evt, "self_device_time_total", 0.0) or 0.0) / 1e3
+                avg_kernels += evt.count
+        elif evt.key in SPANS:
+            avg_spans[evt.key] += float(getattr(evt, "device_time_total", 0.0) or 0.0) / 1e3
+    got = {"device_ms": device_ms, **{k: v["kernels_ms"] for k, v in spans.items()}}
+    want = {"device_ms": avg_ms, **avg_spans}
+    ok = kernels == avg_kernels and all(
+        abs(got[k] - want[k]) <= 1e-3 * max(want[k], 1e-3) for k in want)
+    emit({"phase": phase + "_events_vs_key_averages", "kernels": [kernels, avg_kernels],
+          "device_events": got, "key_averages": want, "ok": ok})
+    if not ok:
+        raise SystemExit(f"{phase}: the raw-event device times disagree "
+                         "with key_averages()")
 
 
 def profile_serve(cfg, params, reqs, serve_wall_s: float, max_seq: int,
@@ -1363,8 +1569,16 @@ def profile_serve(cfg, params, reqs, serve_wall_s: float, max_seq: int,
         engine.shutdown()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    kernel_us, kernels = kernel_events(prof)
+    kernel_us, kernels, spans = device_events(prof)
     total_ms = sum(kernel_us.values()) / 1e3
+    # The device time by part of the model: attention (after ln1), the MoE
+    # FFN's routing and dispatch, its expert products, and the rest (norms,
+    # dense MLPs, recurrences, embedding, head, sampling).
+    moe_ms, experts_ms = spans["moe_ffn"]["kernels_ms"], spans["moe_experts"]["kernels_ms"]
+    split = {"attention_ms": spans["attention"]["kernels_ms"],
+             "moe_routing_dispatch_ms": moe_ms - experts_ms,
+             "moe_expert_products_ms": experts_ms,
+             "rest_ms": total_ms - spans["attention"]["kernels_ms"] - moe_ms}
 
     def share(word):
         return sum(us for k, us in kernel_us.items() if word in k) / 1e3
@@ -1384,9 +1598,11 @@ def profile_serve(cfg, params, reqs, serve_wall_s: float, max_seq: int,
         with profile(activities=activities) as one:
             fn()
             torch.cuda.synchronize()
-        us, n = kernel_events(one)
+        us, n, one_spans = device_events(one)
         alone[f"{name}_device_ms"] = sum(us.values()) / 1e3
         alone[f"{name}_kernels"] = n
+        if name == "decode_tick":
+            check_device_events(one, sum(us.values()) / 1e3, n, one_spans, phase)
     emit({"phase": phase, "arch": cfg.name, "profiled_wall_s": wall_s,
           "kernel_device_ms": total_ms, "kernels": kernels,
           "device_busy_share_profiled": total_ms / 1e3 / wall_s,
@@ -1394,6 +1610,7 @@ def profile_serve(cfg, params, reqs, serve_wall_s: float, max_seq: int,
           "rmsnorm_kernel_ms": share("rmsnorm_kernel"),
           "flash_kernel_ms": share("flash_kernel"),
           "rglru_kernel_ms": share("rglru_kernel"),
+          "device_ms_by_part": split, "spans": spans,
           "top_kernels": [[k[:80], us / 1e3] for k, us in sorted(
               kernel_us.items(), key=lambda kv: -kv[1])[:10]],
           "prefill_tokens": mean_prompt, **alone})
@@ -1411,7 +1628,7 @@ def rmsnorm_work(serve, gen):
     D] per tick, bf16 rows and scale.  Its classes: the prefill's launches
     and the ticks'; its floor: as many launches at [1, 8]."""
     cfg = serve["cfg"]
-    D, per_pass, bf16 = cfg.d_model, 2 * cfg.num_layers + 1, torch.bfloat16
+    D, per_pass, bf16 = cfg.d_model, pass_norms(cfg), torch.bfloat16
     by_class = {"prefill": [s for s in serve["prompt_lens"] for _ in range(per_pass)],
                 "tick": [SERVE_SLOTS] * (per_pass * serve["ticks"])}
     rows = by_class["prefill"] + by_class["tick"]
@@ -1805,16 +2022,24 @@ def train_trainer() -> None:
 
 
 def expected_train_launches(cfg) -> dict[str, int]:
-    """Per train step with every block recomputed in the backward: ln1 and
-    ln2 of every block twice and final_norm once forward, each once
-    backward; one flash launch per attention layer, twice; one RG-LRU scan
-    per rec layer, twice forward and once reversed for the backward."""
+    """Per train step with every block recomputed in the backward: each
+    block's norms twice and final_norm once forward, each once backward;
+    one flash launch per attention-kind layer, twice; one RG-LRU scan per
+    rec layer, twice forward and once reversed for the backward.  An
+    encoder-decoder counts its encoder's blocks (two norms, one non-causal
+    flash launch), its decoder's (three norms, a causal and a cross flash
+    launch) and two final norms."""
     if not cfg.remat:
         raise SystemExit(f"{cfg.name}: the expected counts assume remat")
-    rec = cfg.layer_counts().get("rec", 0)
-    L = cfg.num_layers
-    return {"mandelbrot": 0, "rmsnorm": 4 * L + 1, "flash": 2 * (L - rec),
-            "rglru": 3 * rec, "rmsnorm_backward": 2 * L + 1, "rglru_backward": rec}
+    if cfg.encoder_layers:
+        blocks, finals = 2 * cfg.encoder_layers + 3 * cfg.num_layers, 2
+        flash, rec = cfg.encoder_layers + 2 * cfg.num_layers, 0
+    else:
+        blocks, finals = pass_norms(cfg) - 1, 1
+        flash, rec = attention_layers(cfg), cfg.layer_counts().get("rec", 0)
+    return {"mandelbrot": 0, "rmsnorm": 2 * blocks + finals, "flash": 2 * flash,
+            "rglru": 3 * rec, "rmsnorm_backward": blocks + finals,
+            "rglru_backward": rec}
 
 
 def train_full() -> dict:
@@ -1869,7 +2094,7 @@ def train_full() -> dict:
         params, opt_state, m = step_fn(params, opt_state, batch, TRAIN_STEPS + 1)
         float(m["loss"])
         torch.cuda.synchronize()
-    kernel_us, kernels = kernel_events(prof)
+    kernel_us, kernels, _spans = device_events(prof)
     device_ms = sum(kernel_us.values()) / 1e3
     mean_ms = statistics.mean(r["ms"] for r in rows)
     emit({"phase": "train_full", "arch": cfg.name, "num_layers": cfg.num_layers,
@@ -1997,6 +2222,414 @@ def train_kernel_rows(train: dict, errs: dict, clock_hz: float) -> list[dict]:
           "share_of_step_device_ms": times["backward_ms"] / steps / train["device_ms"],
           "share_of_step_wall": times["backward_ms"] / steps / train["mean_step_ms"]})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# The other block families: MoE, xLSTM, encoder-decoder, the ViT prefix
+# ---------------------------------------------------------------------------
+
+
+def flash_launch(cfg, b, sq, skv, causal, window=0):
+    return (b, cfg.num_heads, cfg.num_kv_heads, sq, skv, cfg.head_dim, causal, window)
+
+
+def serve_path(phase: str, serve: dict, scale_dtype=torch.bfloat16) -> dict:
+    """A decoder-only serving path's kernel launches as shapes: per prefill
+    of S tokens, ``pass_norms`` RMS norms of [S, D] and a flash launch per
+    attention layer; per tick of R rows, ``pass_norms`` RMS norms of [R, D]."""
+    cfg = serve["cfg"]
+    norms = [(s, cfg.d_model) for s in serve["prefill_lens"]] \
+        + [(r, cfg.d_model) for r in serve["tick_rows"]]
+    flash = [flash_launch(cfg, 1, s, s, True, cfg.window_size if kind == "local" else 0)
+             for kind, n in cfg.layer_counts().items() if kind in lm.ATTN_KINDS
+             for s in serve["prefill_lens"] for _ in range(n)]
+    return {"phase": phase, "launches": serve["launches"],
+            "rmsnorm": [r for r in norms for _ in range(pass_norms(cfg))],
+            "flash": flash, "scale_dtype": scale_dtype}
+
+
+def train_path(phase: str, cfg, batch: int, seq: int, steps: int, launches: dict,
+               enc_seq: int = 0) -> dict:
+    """A training path's forward kernel launches as shapes: every norm of a
+    step at [batch * seq, D] (the encoder's at [batch * enc_seq, D]) with an
+    f32 scale, every flash launch at the step's sequence lengths."""
+    per = expected_train_launches(cfg)
+    if cfg.encoder_layers:
+        ne, nd = cfg.encoder_layers, cfg.num_layers
+        norms = ([(batch * enc_seq, cfg.d_model)] * (4 * ne + 1)
+                 + [(batch * seq, cfg.d_model)] * (6 * nd + 1))
+        flash = ([flash_launch(cfg, batch, enc_seq, enc_seq, False)] * (2 * ne)
+                 + [flash_launch(cfg, batch, seq, seq, True)] * (2 * nd)
+                 + [flash_launch(cfg, batch, seq, enc_seq, False)] * (2 * nd))
+    else:
+        norms = [(batch * seq, cfg.d_model)] * per["rmsnorm"]
+        flash = [flash_launch(cfg, batch, seq, seq, True)] * per["flash"]
+    return {"phase": phase, "launches": launches, "rmsnorm": norms * steps,
+            "flash": flash * steps, "scale_dtype": torch.float32}
+
+
+def check_counts(phase: str, launches: dict, expected: dict, variant: str) -> None:
+    """Launch counts equal to the expected ones, every flash launch through
+    ``variant``'s kernel."""
+    got = {k: launches[k] for k in expected}
+    variants = dict(flash_kernel.LAUNCHES_BY_VARIANT)
+    want = {v: expected.get("flash", 0) if v == variant else 0 for v in variants}
+    if got != expected or variants != want:
+        raise SystemExit(f"{phase}: launches {got} {variants} != expected {expected} "
+                         f"all through {variant}")
+
+
+def params_at(cfg, dtype):
+    specs = steps_mod.model_param_specs(cfg)
+    t0 = time.perf_counter()
+    params = init_params(specs, 0, "cuda", dtype)
+    torch.cuda.synchronize()
+    return params, count_params(specs), time.perf_counter() - t0
+
+
+def serve_maverick() -> dict:
+    """llama4-maverick at full width, one period deep, in bf16: the engine
+    (one slot) against offline greedy decode, with its launches counted."""
+    cfg = cut(MAVERICK, MAVERICK_LAYERS, compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    serve = serve_check(MAVERICK, "serve_maverick", cfg, MAVERICK_MAX_SEQ,
+                        lambda rng, vocab: make_requests(
+                            rng, MAVERICK_REQUESTS, MAVERICK_PROMPT, SERVE_NEW, vocab),
+                        slots=1)
+    emit({"phase": "serve_maverick_memory", "arch": MAVERICK,
+          "params": count_params(lm.lm_param_specs(cfg)),
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "wall_s": time.perf_counter() - t0})
+    return serve_path("serve_maverick", serve)
+
+
+def train_steps(cfg, batches, steps: int, phase: str, **extra) -> dict:
+    """``make_train_step`` at ``cfg`` with f32 parameters and AdamW state:
+    ``steps`` steps on ``batches(step)``, each timed and its launches
+    counted; every step's launches must be the expected ones, all flash
+    launches through wgmma.  Returns the params (for a prefill after) and
+    the path."""
+    params, n_params, init_s = params_at(cfg, torch.float32)
+    opt_cfg = adamw.AdamWConfig()
+    opt_state = adamw.init_state(params, opt_cfg)
+    step_fn = steps_mod.make_train_step(cfg, opt_cfg, peak_lr=3e-4, warmup_steps=1,
+                                        total_steps=steps + 1)
+    expected = expected_train_launches(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rows = []
+    for step in range(steps):
+        batch = batches(step)
+        before = current_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch, step)
+        metrics = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        after = current_launches()
+        tokens = batch["tokens"].numel()
+        rows.append({"step": step, **metrics, "ms": ms,
+                     "tokens_per_s": tokens / ms * 1e3,
+                     "launches": {k: after[k] - before[k] for k in after}})
+    launches = current_launches()
+    emit({"phase": phase, "arch": cfg.name, "num_layers": cfg.num_layers,
+          "encoder_layers": cfg.encoder_layers, "layer_kinds": cfg.layer_counts(),
+          "d_model": cfg.d_model, "params": n_params, "init_params_s": init_s,
+          "param_dtype": "float32", "compute_dtype": cfg.compute_dtype,
+          "state_dtype": opt_cfg.state_dtype, "remat": cfg.remat,
+          "batch_shape": list(batch["tokens"].shape),
+          "ln_vocab": math.log(cfg.vocab_size), "steps": rows,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "expected_launches_per_step": expected,
+          "flash_launches_by_variant": dict(flash_kernel.LAUNCHES_BY_VARIANT),
+          "deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
+          **extra})
+    for r in rows:
+        if not all(math.isfinite(v) for k, v in r.items() if k != "launches"):
+            raise SystemExit(f"{phase}: step {r['step']} is not finite: {r}")
+        if r["launches"] != expected:
+            raise SystemExit(f"{phase}: step {r['step']} launches {r['launches']} "
+                             f"!= expected {expected}")
+    if abs(rows[0]["ce_loss"] - math.log(cfg.vocab_size)) > 2.0:
+        raise SystemExit(f"{phase}: first CE {rows[0]['ce_loss']} is far from ln V")
+    check_counts(phase, launches, {k: v * steps for k, v in expected.items()}, "wgmma")
+    del opt_state
+    return {"params": params, "launches": launches}
+
+
+def train_xlstm() -> dict:
+    cfg = get_config(XLSTM)
+    pipe = DataPipeline(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0), "cuda")
+    launches = train_steps(cfg, pipe.get, XLSTM_TRAIN_STEPS, "train_xlstm")["launches"]
+    torch.cuda.empty_cache()
+    return train_path("train_xlstm", cfg, TRAIN_BATCH, TRAIN_SEQ, XLSTM_TRAIN_STEPS,
+                      launches)
+
+
+def grad_fingerprint(cfg, params, batch) -> tuple[bytes, list[int]]:
+    """The loss's bits and a checksum of every gradient's bits, for one
+    forward and backward of ``batch`` from ``params``."""
+    leaves = adamw.tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    try:
+        loss, _m = steps_mod.loss_fn_for(cfg)(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for leaf in leaves:
+            leaf.requires_grad_(False)
+    sums = [int(g.view(torch.int32).sum(dtype=torch.int64)) for g in grads]
+    return loss.detach().cpu().numpy().tobytes(), sums
+
+
+def train_moe() -> dict:
+    """olmoe-1b-7b cut to 6 layers, B 1 x S 2048, f32 state, under
+    deterministic algorithms: 3 steps, then one forward and backward
+    replayed twice from the same parameters, bit for bit."""
+    cfg = cut(OLMOE, MOE_TRAIN_LAYERS, compute_dtype="bfloat16")
+    pipe = DataPipeline(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0), "cuda")
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = train_steps(cfg, pipe.get, MOE_TRAIN_STEPS, "train_moe",
+                          depth_cut=f"{MOE_TRAIN_LAYERS} of {get_config(OLMOE).num_layers} "
+                                    f"layers",
+                          capacity_factor=cfg.capacity_factor)
+        launches = out["launches"]
+        batch = pipe.get(MOE_TRAIN_STEPS)
+        first = grad_fingerprint(cfg, out["params"], batch)
+        again = grad_fingerprint(cfg, out["params"], batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = first == again
+    emit({"phase": "train_moe_replay", "arch": cfg.name, "loss_bits_equal": first[0] == again[0],
+          "gradient_checksums_equal": first[1] == again[1], "leaves": len(first[1]),
+          "ok": same})
+    if not same:
+        raise SystemExit("train_moe: a replayed forward and backward differs")
+    del out
+    torch.cuda.empty_cache()
+    return train_path("train_moe", cfg, TRAIN_BATCH, TRAIN_SEQ, MOE_TRAIN_STEPS, launches)
+
+
+def encdec_expected(cfg, encodes: int, steps: int, decodes: int) -> dict[str, int]:
+    """Launches of ``encodes`` encoder passes, ``steps`` decode steps and
+    ``decodes`` full decoder passes of an encoder-decoder."""
+    ne, nd = cfg.encoder_layers, cfg.num_layers
+    return {"mandelbrot": 0, "rglru": 0,
+            "rmsnorm": encodes * (2 * ne + 1) + (steps + decodes) * (3 * nd + 1),
+            "flash": encodes * ne + decodes * 2 * nd}
+
+
+def greedy_encdec(cfg, params, enc_out, new: int):
+    """``new`` greedy tokens from token 1 through ``encdec_decode_step``:
+    (the fed tokens [B, new], each step's logits, each step's ms)."""
+    B = enc_out.shape[0]
+    cache = encdec_mod.init_encdec_cache(cfg, params, enc_out, new)
+    tok = torch.ones((B, 1), dtype=torch.int64, device="cuda")
+    fed, logits, ms = [], [], []
+    for t in range(new):
+        start = time.perf_counter()
+        lg, cache = encdec_mod.encdec_decode_step(cfg, params, cache, tok, t)
+        fed.append(tok)
+        logits.append(lg[:, 0])
+        tok = torch.argmax(lg[:, :, :cfg.vocab_size], dim=-1)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - start) * 1e3)
+    return torch.cat(fed, dim=1), logits, ms
+
+
+def encdec_phases() -> list[dict]:
+    """seamless-m4t-large-v2: the decode-vs-forward check (4 + 4 layers,
+    f32), the bf16 path at full depth (encode, cross cache, greedy decode)
+    and one train step at full depth."""
+    base = get_config(SEAMLESS)
+    gen = torch.Generator("cuda").manual_seed(9)
+    cfg = cut(SEAMLESS, ENCDEC_CHECK_LAYERS, encoder_layers=ENCDEC_CHECK_LAYERS)
+    params, _n, _s = params_at(cfg, torch.float32)
+    randomize_small_params(params, gen)
+    frames = torch.randn((ENCDEC_BATCH, ENCDEC_CHECK_FRAMES, cfg.d_model), generator=gen,
+                         device="cuda")
+    reset_launches()
+    enc_out = encdec_mod.encode(cfg, params, frames)
+    fed, step_logits, _ms = greedy_encdec(cfg, params, enc_out, ENCDEC_CHECK_TOKENS)
+    full = encdec_mod.decode_train(cfg, params, fed, enc_out) @ params["lm_head"]
+    err = max(float((lg - full[:, t]).abs().max()) for t, lg in enumerate(step_logits))
+    torch.cuda.synchronize()
+    check_counts("encdec_check", current_launches(),
+                 encdec_expected(cfg, 1, ENCDEC_CHECK_TOKENS, 1), "f32")
+    ok = err <= ENCDEC_TOL
+    emit({"phase": "encdec_check", "arch": SEAMLESS, "d_model": cfg.d_model,
+          "depth_cut": f"{cfg.encoder_layers} + {cfg.num_layers} of "
+                       f"{base.encoder_layers} + {base.num_layers} layers",
+          "compute_dtype": cfg.compute_dtype, "frames": list(frames.shape),
+          "tokens": ENCDEC_CHECK_TOKENS, "max_abs_err_step_vs_forward": err,
+          "tol": ENCDEC_TOL, "launches": current_launches(), "ok": ok})
+    if not ok:
+        raise SystemExit(f"encdec: decode steps differ from the forward by {err}")
+    del params, enc_out, full
+    torch.cuda.empty_cache()
+
+    cfg = base
+    params, n_params, init_s = params_at(cfg, torch.bfloat16)
+    frames = torch.randn((ENCDEC_BATCH, ENCDEC_FRAMES, cfg.d_model), generator=gen,
+                         device="cuda")
+    encdec_mod.encode(cfg, params, frames[:, :64])  # warm-up
+    greedy_encdec(cfg, params, encdec_mod.encode(cfg, params, frames[:, :64]), 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    enc_out = encdec_mod.encode(cfg, params, frames)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    fed, logits, step_ms = greedy_encdec(cfg, params, enc_out, ENCDEC_NEW)
+    launches = current_launches()
+    check_counts("encdec_serve", launches, encdec_expected(cfg, 1, ENCDEC_NEW, 0), "wgmma")
+    finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
+    in_vocab = bool(((fed >= 0) & (fed < cfg.vocab_size)).all())
+    emit({"phase": "encdec_serve", "arch": SEAMLESS, "encoder_layers": cfg.encoder_layers,
+          "num_layers": cfg.num_layers, "d_model": cfg.d_model, "params": n_params,
+          "weights_dtype": "bfloat16", "init_params_s": init_s,
+          "frames": list(frames.shape), "new_tokens": ENCDEC_NEW, "encode_ms": encode_ms,
+          "decode_step_ms": step_ms, "decode_ms_per_step_after_first":
+              statistics.mean(step_ms[1:]),
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "finite": finite, "ok": finite and in_vocab})
+    if not (finite and in_vocab):
+        raise SystemExit("encdec: bf16 decode gave a non-finite logit or a token "
+                         "outside the vocabulary")
+    del params, enc_out
+    torch.cuda.empty_cache()
+    serve = {"phase": "encdec_serve", "launches": launches, "scale_dtype": torch.bfloat16,
+             "rmsnorm": [(ENCDEC_BATCH * ENCDEC_FRAMES, cfg.d_model)]
+             * (2 * cfg.encoder_layers + 1)
+             + [(ENCDEC_BATCH, cfg.d_model)] * ((3 * cfg.num_layers + 1) * ENCDEC_NEW),
+             "flash": [flash_launch(cfg, ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_FRAMES, False)]
+             * cfg.encoder_layers}
+
+    pipe = DataPipeline(SyntheticLM(cfg.vocab_size, ENCDEC_TRAIN_SEQ, TRAIN_BATCH, seed=0,
+                                    d_model=cfg.d_model, encdec=True), "cuda")
+    launches = train_steps(cfg, pipe.get, 1, "train_encdec",
+                           frames=[TRAIN_BATCH, ENCDEC_TRAIN_SEQ, cfg.d_model])["launches"]
+    torch.cuda.empty_cache()
+    return [serve, train_path("train_encdec", cfg, TRAIN_BATCH, ENCDEC_TRAIN_SEQ, 1,
+                              launches, enc_seq=ENCDEC_TRAIN_SEQ)]
+
+
+def train_vlm() -> list[dict]:
+    """internvl2-2b at full depth: 2 train steps with the ViT stub's 256
+    embeddings as the prefix, then one bf16 prefill step with them."""
+    cfg = get_config(VLM)
+    pipe = DataPipeline(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0,
+                                    frontend_len=cfg.frontend_len, d_model=cfg.d_model),
+                        "cuda")
+    out = train_steps(cfg, pipe.get, VLM_TRAIN_STEPS, "train_vlm",
+                      extra_embeds=[TRAIN_BATCH, cfg.frontend_len, cfg.d_model])
+    train = train_path("train_vlm", cfg, TRAIN_BATCH, TRAIN_SEQ, VLM_TRAIN_STEPS,
+                       out["launches"])
+    params = adamw.tree_map(lambda p: p.to(torch.bfloat16), out["params"])
+    del out
+    torch.cuda.empty_cache()
+    batch = pipe.get(VLM_TRAIN_STEPS)
+    prefill = steps_mod.make_prefill_step(cfg)
+    prefill(params, {"tokens": batch["tokens"][:, :64],
+                     "extra_embeds": batch["extra_embeds"][:, :32]})  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"tokens": batch["tokens"], "extra_embeds": batch["extra_embeds"]})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = current_launches()
+    check_counts("prefill_vlm", launches, expected_launches(cfg, 1, 0), "wgmma")
+    ok = (tuple(logits.shape) == (TRAIN_BATCH, cfg.padded_vocab(1))
+          and bool(torch.isfinite(logits).all()))
+    emit({"phase": "prefill_vlm", "arch": VLM, "weights_dtype": "bfloat16",
+          "tokens": list(batch["tokens"].shape),
+          "extra_embeds": list(batch["extra_embeds"].shape), "ms": ms,
+          "logits": list(logits.shape), "launches": launches, "ok": ok})
+    if not ok:
+        raise SystemExit("internvl2-2b: the prefill step's logits are wrong")
+    del params
+    torch.cuda.empty_cache()
+    pre = serve_path("prefill_vlm", {"cfg": cfg, "prefill_lens": [TRAIN_SEQ],
+                                     "tick_rows": [], "launches": launches})
+    return [train, pre]
+
+
+def other_families() -> list[dict]:
+    """Every phase of the other block families, in order; each returns its
+    path's kernel launches as shapes, for ``by_path``."""
+    paths = []
+    serve_check(OLMOE, "serve_check_moe", cut(OLMOE, MOE_CHECK_LAYERS), YI_CHECK_MAX_SEQ,
+                lambda rng, vocab: make_requests(rng, CHECK_REQUESTS, YI_CHECK_PROMPT,
+                                                 CHECK_NEW, vocab))
+    paths.append(serve_path("serve_moe", serve_full(
+        OLMOE, "serve_moe", YI_SERVE_MAX_SEQ,
+        lambda rng, vocab: make_requests(rng, SERVE_REQUESTS, YI_SERVE_PROMPT,
+                                         SERVE_NEW, vocab), profile=True)))
+    paths.append(serve_maverick())
+    serve_check(XLSTM, "serve_check_xlstm",
+                cut(XLSTM, len(XLSTM_CHECK_PATTERN), layer_pattern=XLSTM_CHECK_PATTERN),
+                YI_CHECK_MAX_SEQ,
+                lambda rng, vocab: make_requests(rng, CHECK_REQUESTS, YI_CHECK_PROMPT,
+                                                 CHECK_NEW, vocab))
+    paths.append(serve_path("serve_xlstm", serve_full(
+        XLSTM, "serve_xlstm", YI_SERVE_MAX_SEQ,
+        lambda rng, vocab: make_requests(rng, SERVE_REQUESTS, YI_SERVE_PROMPT,
+                                         SERVE_NEW, vocab), profile=False)))
+    paths.append(train_xlstm())
+    paths.append(train_moe())
+    paths += encdec_phases()
+    paths += train_vlm()
+    return paths
+
+
+def by_path(paths: list[dict]) -> dict[str, dict[str, dict]]:
+    """Each new path's RMS-norm and flash launches replayed, launch for
+    launch, at the shapes it gave them: {kernel: {path: {launches, ms}}}.
+    The replayed count must equal the count the path's run made."""
+    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    gen = torch.Generator("cuda").manual_seed(10)
+    bf16 = torch.bfloat16
+    out: dict[str, dict] = {"rmsnorm": {}, "flash": {}}
+    for path in paths:
+        rms_in, fl_in = {}, {}
+        for n, d in path["rmsnorm"]:
+            rms_in.setdefault((n, d), (
+                torch.randn((n, d), generator=gen, device="cuda").to(bf16),
+                (0.2 * torch.randn((d,), generator=gen, device="cuda")
+                 ).to(path["scale_dtype"])))
+        for launch in path["flash"]:
+            b, h, kv, sq, skv, d, _causal, _window = launch
+            fl_in.setdefault(launch, flash_inputs(b, h, kv, sq, skv, d, bf16, gen, True))
+
+        def rms_call(shape, inputs=rms_in):
+            return lambda: rms_kernel.rms_norm_cuda(*inputs[shape])
+
+        def flash_call(launch, inputs=fl_in):
+            return lambda: flash_kernel.flash_attention_cuda(
+                *inputs[launch], causal=launch[6], window=launch[7])
+
+        for kernel, shapes, make in (("rmsnorm", path["rmsnorm"], rms_call),
+                                     ("flash", path["flash"], flash_call)):
+            if len(shapes) != path["launches"][kernel]:
+                raise SystemExit(f"{path['phase']}: replayed {len(shapes)} {kernel} "
+                                 f"launches, the path made {path['launches'][kernel]}")
+            if not shapes:
+                continue
+            for shape in set(shapes):
+                make(shape)()  # warm-up, every shape once
+            torch.cuda.synchronize()
+            ms, paced = spun_device_ms([make(shape) for shape in shapes], clock_hz)
+            out[kernel][path["phase"]] = {"launches": len(shapes), "ms": ms,
+                                          "host_paced": paced}
+        del rms_in, fl_in
+    emit({"phase": "by_path", **out})
+    return out
 
 
 if __name__ == "__main__":

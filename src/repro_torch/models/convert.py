@@ -2,11 +2,13 @@
 
 The JAX package's parameter trees are nested dicts of arrays (``embed``,
 ``final_norm``, ``lm_head``, ``blocks/<kind>/{ln1, wq, wk, wv, wo, ln2,
-mlp/{w_gate, w_up, w_down}}`` for the attention kinds and
-``blocks/rec/{ln1, ln2, mlp/..., rec/{w_branch_x, w_branch_gate, conv1d,
-w_out, rglru/{lambda, w_a, b_a, w_x, b_x}}}`` for the recurrent one);
-handed over as numpy arrays with the same keys, at any depth of nesting,
-they become the port's tree of tensors.  ``jax.random`` and
+mlp/{w_gate, w_up, w_down}}`` for the attention kinds, ``moe/{router,
+w_gate, w_up, w_down, shared_w_*}`` in place of ``mlp`` for ``moe``,
+``rec/{..., rglru/{...}}`` for the recurrent kind, ``core/{..., r/{z, f,
+i, o}}`` for the xLSTM kinds, and ``encoder``/``decoder`` stacks with
+``self``/``cross`` projections for the encoder-decoder); handed over as
+numpy arrays with the same keys, at any depth of nesting, they become the
+port's tree of tensors, key for key.  ``jax.random`` and
 ``torch.Generator`` give different numbers from one seed, so this is how
 the two packages are made to compute the same thing.
 """

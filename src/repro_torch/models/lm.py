@@ -1,23 +1,26 @@
-"""Decoder-only language model: the dense and recurrent paths of the JAX
-package's ``models/lm.py`` at ``tp=1``.
+"""Decoder-only language model: every block family of the JAX package's
+``models/lm.py`` at ``tp=1``.
 
 The layer pattern of the config decides which blocks exist and in which
-order.  This port runs the attention kinds ``attn`` (full causal),
-``local`` (sliding window, ring-buffer cache) and ``global``, and the
-Griffin recurrent kind ``rec`` (``models/recurrent.py``), each with a
-SwiGLU MLP.  The other kinds (``moe``, ``mlstm``, ``slstm``) raise
-``NotImplementedError``; ROADMAP queue 1 names the slice that ports them.
+order: the attention kinds ``attn`` (full causal), ``local`` (sliding
+window, ring-buffer cache), ``global`` and ``moe`` (attention with a
+mixture-of-experts FFN, ``models/moe.py``), each but ``moe`` with a SwiGLU
+MLP where ``d_ff > 0``; the Griffin recurrent kind ``rec``
+(``models/recurrent.py``) with its MLP; and the xLSTM kinds ``mlstm`` and
+``slstm`` (``models/xlstm.py``), one RMS norm and no MLP.
 
 Parameters are the JAX package's tree: per block kind, each leaf is stacked
 ``[count, ...]`` over that kind's layers.  Layers run as a plain Python
 loop (no scan).  Under autograd with ``cfg.remat`` (the default), each
 block is recomputed in the backward (``torch.utils.checkpoint``): the JAX
-package's ``remat_policy="nothing"``; its ``"dots"`` policy is not ported.  Every block calls the fused RMS norm twice
-(``ln1``, ``ln2``) and the forward ends in ``final_norm``; the prompt's
-attention goes through the flash-attention entry point and a ``rec``
-block's recurrence through the RG-LRU scan's, in prefill and decode alike.
-Decode writes the new token's K/V, and a ``rec`` layer's state (``h`` and
-``conv``), into the cache in place and returns the same cache.
+package's ``remat_policy="nothing"``; its ``"dots"`` policy is not ported.
+Every block calls the fused RMS norm for ``ln1`` (and ``ln2`` where it has
+one) and the forward ends in ``final_norm``; the prompt's attention goes
+through the flash-attention entry point and a ``rec`` block's recurrence
+through the RG-LRU scan's, in prefill and decode alike.  Decode writes the
+new token's K/V, and a recurrent layer's state, into the cache in place
+and returns the same cache.  ``forward_hidden`` returns the MoE blocks'
+aux losses summed in layer order; ``lm_loss`` weighs them in.
 """
 
 from __future__ import annotations
@@ -26,12 +29,15 @@ import math
 from typing import Any
 
 import torch
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, padded_size
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import ParamSpec, fan_in_normal
 from repro_torch.models.layers import (
     chunked_cross_entropy,
@@ -42,23 +48,9 @@ from repro_torch.models.layers import (
     swiglu,
 )
 
-ATTN_KINDS = ("attn", "local", "global")
-_NOT_PORTED = {  # kind -> (blocks, the ROADMAP queue 1 item that ports them)
-    "moe": ("MoE blocks", "the other block families"),
-    "mlstm": ("xLSTM blocks", "the other block families"),
-    "slstm": ("xLSTM blocks", "the other block families"),
-}
-
-
-def _check_kind(kind: str) -> None:
-    if kind in ATTN_KINDS or kind == "rec":
-        return
-    if kind in _NOT_PORTED:
-        blocks, item = _NOT_PORTED[kind]
-        raise NotImplementedError(
-            f"layer kind {kind!r}: {blocks} are not ported yet "
-            f"(ROADMAP queue 1, '{item}')")
-    raise ValueError(f"unknown layer kind {kind!r}")
+ATTN_KINDS = ("attn", "local", "global", "moe")
+STATE_KINDS = ("rec", "mlstm", "slstm")
+MOE_AUX = ("moe_lb_loss", "moe_z_loss", "moe_drop_fraction")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -111,21 +103,30 @@ def _attn_specs(cfg: ModelConfig, n: int) -> dict:
 
 
 def _block_specs(cfg: ModelConfig, kind: str, n: int) -> dict:
-    _check_kind(kind)
+    D = cfg.d_model
+    if kind in ("mlstm", "slstm"):
+        core = (xlstm_mod.mlstm_block_specs if kind == "mlstm"
+                else xlstm_mod.slstm_block_specs)
+        return {"ln1": ParamSpec((n, D), ("layers", "d_model"), init="zeros"),
+                "core": core(n, D, cfg.num_heads, cfg.head_dim)}
     if kind == "rec":
         specs = {
-            "ln1": ParamSpec((n, cfg.d_model), ("layers", "d_model"),
-                             init="zeros"),
+            "ln1": ParamSpec((n, D), ("layers", "d_model"), init="zeros"),
             "rec": rec_mod.recurrent_block_specs(
-                n, cfg.d_model, cfg.rnn_width or cfg.d_model,
-                cfg.conv1d_width),
+                n, D, cfg.rnn_width or D, cfg.conv1d_width),
         }
-    else:
+    elif kind in ATTN_KINDS:
         specs = _attn_specs(cfg, n)
-    if cfg.d_ff > 0:
-        specs["ln2"] = ParamSpec((n, cfg.d_model), ("layers", "d_model"),
-                                 init="zeros")
-        specs["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, n)
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
+    if kind == "moe":
+        specs["ln2"] = ParamSpec((n, D), ("layers", "d_model"), init="zeros")
+        specs["moe"] = moe_mod.moe_param_specs(
+            n, D, cfg.moe_d_ff, cfg.num_experts, cfg.num_shared_experts,
+            cfg.moe_d_ff)
+    elif cfg.d_ff > 0:
+        specs["ln2"] = ParamSpec((n, D), ("layers", "d_model"), init="zeros")
+        specs["mlp"] = mlp_specs(D, cfg.d_ff, n)
     return specs
 
 
@@ -163,83 +164,125 @@ def _attention_part(cfg, p, x, positions, *, kind, cache=None, cache_len=None,
     serving slot).  ``local`` layers use a ring buffer of exactly the window
     size: keys carry RoPE for their true positions, so slot order does not
     matter and no window mask is needed.  ``return_state`` (prefill):
-    returns this segment's fresh {"k","v"}.
+    returns this segment's fresh {"k","v"}.  Everything after ``ln1`` is
+    the profiler span ``attention``.
     """
     hp = head_plan(cfg, 1)
     H, KV, hd = hp["Hp"], hp["Kp"], cfg.head_dim
     B, S, _D = x.shape
     cdt = _dtype(cfg.compute_dtype)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = (h @ p["wq"].to(cdt)).reshape(B, S, H, hd)
-    k = (h @ p["wk"].to(cdt)).reshape(B, S, KV, hd)
-    v = (h @ p["wv"].to(cdt)).reshape(B, S, KV, hd)
-    if cfg.use_qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = attn_mod.apply_rope(q, positions, cfg.rope_theta)
-    k = attn_mod.apply_rope(k, positions, cfg.rope_theta)
+    with record_function("attention"):
+        q = (h @ p["wq"].to(cdt)).reshape(B, S, H, hd)
+        k = (h @ p["wk"].to(cdt)).reshape(B, S, KV, hd)
+        v = (h @ p["wv"].to(cdt)).reshape(B, S, KV, hd)
+        if cfg.use_qk_norm:
+            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = attn_mod.apply_rope(q, positions, cfg.rope_theta)
+        k = attn_mod.apply_rope(k, positions, cfg.rope_theta)
 
-    state = None
-    if cache is not None:
-        ck, cv = cache["k"], cache["v"]
-        size = ck.shape[1]
-        if isinstance(cache_len, int):
+        state = None
+        if cache is not None:
+            ck, cv = cache["k"], cache["v"]
+            size = ck.shape[1]
             slot = cache_len % size if kind == "local" else cache_len
-            ck[:, slot:slot + S] = k.to(ck.dtype)
-            cv[:, slot:slot + S] = v.to(cv.dtype)
-            valid = min(cache_len + S, size)
+            if isinstance(cache_len, int):
+                ck[:, slot:slot + S] = k.to(ck.dtype)
+                cv[:, slot:slot + S] = v.to(cv.dtype)
+                valid = min(cache_len + S, size)
+            else:
+                bidx = torch.arange(B, device=x.device)
+                ck[bidx, slot] = k[:, 0].to(ck.dtype)
+                cv[bidx, slot] = v[:, 0].to(cv.dtype)
+                valid = torch.clamp(cache_len + S, max=size)
+            out = attn_mod.decode_attention(q, ck, cv, valid)
+            state = cache
         else:
-            slot = cache_len % size if kind == "local" else cache_len
-            bidx = torch.arange(B, device=x.device)
-            ck[bidx, slot] = k[:, 0].to(ck.dtype)
-            cv[bidx, slot] = v[:, 0].to(cv.dtype)
-            valid = torch.clamp(cache_len + S, max=size)
-        out = attn_mod.decode_attention(q, ck, cv, valid)
-        state = cache
-    else:
-        window = cfg.window_size if kind == "local" else 0
-        out = attn_mod.attention(q, k, v, causal=True, window=window)
-        if return_state:
-            state = {"k": k, "v": v}
-    out = out.reshape(B, S, H * hd) @ p["wo"].to(cdt)
+            window = cfg.window_size if kind == "local" else 0
+            out = attn_mod.attention(q, k, v, causal=True, window=window)
+            if return_state:
+                state = {"k": k, "v": v}
+        out = out.reshape(B, S, H * hd) @ p["wo"].to(cdt)
     return out.to(x.dtype), state
 
 
-def _recurrent_part(cfg, p, x, *, cache=None):
-    """Recurrent sub-block.  Returns (rec_out, state).
+def _cache_kind_state(cache_slice, kind):
+    """A recurrent layer's cache leaves as its block takes them."""
+    if cache_slice is None or kind == "rec":
+        return cache_slice
+    if kind == "mlstm":
+        return (cache_slice["conv"],
+                (cache_slice["C"], cache_slice["n"], cache_slice["m"]))
+    return tuple(cache_slice[name] for name in ("c", "n", "m", "h"))
 
-    ``cache`` (decode): {"h", "conv"} views into the stacked cache; the new
-    state is written into them in place.  Without it (a whole prompt), the
-    state is the one the prompt leaves behind.
+
+def _state_to_cache(state, kind) -> dict:
+    """A recurrent block's new state as its cache leaves."""
+    if kind == "rec":
+        return state
+    if kind == "mlstm":
+        conv, (C, n, m) = state
+        return {"conv": conv, "C": C, "n": n, "m": m}
+    return dict(zip(("c", "n", "m", "h"), state))
+
+
+def _state_part(cfg, kind, p, x, *, cache=None):
+    """Recurrent sub-block (``rec``, ``mlstm`` or ``slstm``).  Returns
+    (out, state as cache leaves).
+
+    ``cache`` (decode): that layer's cache leaves (views into the stacked
+    cache); the new state is written into them in place.  Without it (a
+    whole prompt), the state is the one the prompt leaves behind.
     """
+    cdt = _dtype(cfg.compute_dtype)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    out, state = rec_mod.recurrent_block(
-        p["rec"], h, compute_dtype=_dtype(cfg.compute_dtype), state=cache)
+    state = _cache_kind_state(cache, kind)
+    if kind == "rec":
+        out, new = rec_mod.recurrent_block(p["rec"], h, compute_dtype=cdt,
+                                           state=state)
+    elif kind == "mlstm":
+        out, new = xlstm_mod.mlstm_block(p["core"], h, heads=cfg.num_heads,
+                                         compute_dtype=cdt, state=state)
+    else:
+        out, new = xlstm_mod.slstm_block(p["core"], h, heads=cfg.num_heads,
+                                         compute_dtype=cdt, state=state)
+    new = _state_to_cache(new, kind)
     if cache is not None:
-        for name, leaf in state.items():
+        for name, leaf in new.items():
             cache[name].copy_(leaf)
-        state = cache
-    return out, state
+        new = cache
+    return out, new
 
 
 def apply_block(cfg, kind, p, x, positions, *, cache=None, cache_len=None,
                 return_state=False):
-    """One residual block of the given kind.  Returns (x, new_cache)."""
-    _check_kind(kind)
+    """One residual block of the given kind.  Returns (x, new_cache, aux):
+    ``aux`` holds a ``moe`` block's aux losses, else it is empty."""
     cdt = _dtype(cfg.compute_dtype)
-    if kind == "rec":
-        mix_out, state = _recurrent_part(cfg, p, x, cache=cache)
-    else:
+    if kind in ATTN_KINDS:
         mix_out, state = _attention_part(
             cfg, p, x, positions, kind=kind, cache=cache, cache_len=cache_len,
             return_state=return_state,
         )
+    elif kind in STATE_KINDS:
+        mix_out, state = _state_part(cfg, kind, p, x, cache=cache)
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
     x = x + mix_out
-    if cfg.d_ff > 0:
+    aux: dict[str, torch.Tensor] = {}
+    if kind == "moe":
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        moe_out, aux = moe_mod.moe_ffn(
+            h, p["moe"], num_experts=cfg.num_experts,
+            top_k=cfg.experts_per_token, capacity_factor=cfg.capacity_factor,
+            compute_dtype=cdt, dispatch=cfg.moe_dispatch)
+        x = x + moe_out
+    elif "mlp" in p:
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
                        p["mlp"]["w_down"], cdt).to(x.dtype)
-    return x, state
+    return x, state, aux
 
 
 def _layer(tree, i: int):
@@ -293,16 +336,31 @@ def _remat(cfg: ModelConfig, params) -> bool:
     return True
 
 
-def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward to the final hidden states [B, S, D]."""
+def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor,
+                   extra_embeds: torch.Tensor | None = None):
+    """Full-sequence forward to (final hidden states [B, S, D], aux).
+
+    ``extra_embeds`` ([B, F, D]) replace the first F token positions (the
+    VLM patch / audio frame stub inputs), unscaled.  ``aux`` sums the MoE
+    blocks' aux losses in layer order (empty without ``moe`` layers).
+    """
     x = _embed(cfg, params, tokens)
+    if extra_embeds is not None:
+        F = extra_embeds.shape[1]
+        x = torch.cat([extra_embeds.to(x.dtype), x[:, F:]], dim=1)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     remat = _remat(cfg, params)
+    aux_total = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
+                  for k in MOE_AUX} if "moe" in cfg.layer_counts() else {})
     for kind, p, _i in _layers(cfg, params):
         def block(x, p, kind=kind):
-            return apply_block(cfg, kind, p, x, positions)[0]
-        x = checkpoint(block, x, p, use_reentrant=False) if remat else block(x, p)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+            x, _state, aux = apply_block(cfg, kind, p, x, positions)
+            return x, aux
+        x, aux = (checkpoint(block, x, p, use_reentrant=False) if remat
+                  else block(x, p))
+        for k, v in aux.items():
+            aux_total[k] = aux_total[k] + v
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
 
 
 def lm_head_weight(cfg: ModelConfig, params):
@@ -312,20 +370,24 @@ def lm_head_weight(cfg: ModelConfig, params):
 
 
 def lm_loss(cfg: ModelConfig, params, batch):
-    """Mean next-token CE: (loss, {"ce_loss", "loss"}).  The MoE aux losses
-    and the frontend stubs' ``extra_embeds`` wait for their block families
-    (ROADMAP queue 1)."""
-    if "extra_embeds" in batch:
-        raise NotImplementedError(
-            "extra_embeds (frontend stubs) are not ported yet "
-            "(ROADMAP queue 1, 'the other block families')")
-    x = forward_hidden(cfg, params, batch["tokens"])
+    """Mean CE over next-token targets + MoE aux losses: (loss, metrics)
+    with ``ce_loss``, ``loss`` and, for MoE models, the three aux values.
+    ``batch["extra_embeds"]``, where present, is the frontend stub's
+    prefix."""
+    x, aux = forward_hidden(cfg, params, batch["tokens"],
+                            extra_embeds=batch.get("extra_embeds"))
     ce = chunked_cross_entropy(
         x, lm_head_weight(cfg, params), batch["targets"],
         vocab_size=cfg.vocab_size, seq_chunk=cfg.loss_seq_chunk,
         softcap=cfg.logit_softcap, compute_dtype=_dtype(cfg.compute_dtype),
     )
-    return ce, {"ce_loss": ce, "loss": ce}
+    loss = ce
+    metrics = {"ce_loss": ce}
+    if "moe_lb_loss" in aux:
+        loss = loss + 0.01 * aux["moe_lb_loss"] + 0.001 * aux["moe_z_loss"]
+        metrics.update(aux)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def logits_from_hidden(cfg, params, x):
@@ -334,7 +396,7 @@ def logits_from_hidden(cfg, params, x):
 
 
 # ---------------------------------------------------------------------------
-# KV cache / decode
+# KV cache / state decode
 # ---------------------------------------------------------------------------
 
 
@@ -345,11 +407,22 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int, dtype=None) -> dict:
         dtype = _dtype(cfg.compute_dtype)
     hp = head_plan(cfg, 1)
     width = cfg.rnn_width or cfg.d_model
+    hd = cfg.head_dim
+    xw = cfg.num_heads * hd  # xlstm inner width
     kv_axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
     spec: dict[str, Any] = {}
     for kind, n in cfg.layer_counts().items():
-        _check_kind(kind)
-        if kind == "rec":
+        if kind in ATTN_KINDS:
+            # ``local`` layers ring-buffer exactly ``window`` slots: every
+            # resident token is then within the window of the current
+            # query.  The prompt's flash window keeps key k where
+            # k > q - window: the same last ``window`` positions, so prefill
+            # and decode agree.
+            seq = max_seq if kind != "local" else min(max_seq, cfg.window_size)
+            shp = (n, batch, seq, hp["Kp"], cfg.head_dim)
+            spec[kind] = {"k": (shp, dtype, kv_axes, 0.0),
+                          "v": (shp, dtype, kv_axes, 0.0)}
+        elif kind == "rec":
             # The carried state h is float32 whatever the compute dtype.
             spec[kind] = {
                 "h": ((n, batch, width), torch.float32,
@@ -357,22 +430,31 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int, dtype=None) -> dict:
                 "conv": ((n, batch, cfg.conv1d_width - 1, width), dtype,
                          ("layers", "batch", None, "rnn_state"), 0.0),
             }
-            continue
-        # ``local`` layers ring-buffer exactly ``window`` slots: every
-        # resident token is then within the window of the current query.
-        # The prompt's flash window keeps key k where k > q - window: the
-        # same last ``window`` positions, so prefill and decode agree.
-        seq = max_seq if kind != "local" else min(max_seq, cfg.window_size)
-        shp = (n, batch, seq, hp["Kp"], cfg.head_dim)
-        spec[kind] = {"k": (shp, dtype, kv_axes, 0.0),
-                      "v": (shp, dtype, kv_axes, 0.0)}
+        elif kind == "mlstm":
+            spec[kind] = {
+                "conv": ((n, batch, 3, xw), dtype,
+                         ("layers", "batch", None, "rnn_state"), 0.0),
+                "C": ((n, batch, cfg.num_heads, hd, hd), torch.float32,
+                      ("layers", "batch", "heads", None, None), 0.0),
+                "n": ((n, batch, cfg.num_heads, hd), torch.float32,
+                      ("layers", "batch", "heads", None), 0.0),
+                "m": ((n, batch, cfg.num_heads), torch.float32,
+                      ("layers", "batch", "heads"), -1e30),
+            }
+        elif kind == "slstm":
+            st = ((n, batch, cfg.num_heads, hd), torch.float32,
+                  ("layers", "batch", "heads", None))
+            spec[kind] = {"c": st + (0.0,), "n": st + (1.0,),
+                          "m": st + (0.0,), "h": st + (0.0,)}
+        else:
+            raise ValueError(f"unknown layer kind {kind!r}")
     return spec
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> dict:
-    """K/V per attention kind and h/conv for ``rec``, stacked over that
-    kind's layer count."""
+    """Decode state per layer kind (K/V for the attention kinds, the
+    recurrent state for the others), stacked over that kind's layer count."""
     dev = resolve_device(device)
     return {
         kind: {name: torch.full(shp, fill, dtype=dt, device=dev)
@@ -392,9 +474,9 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
     else:
         positions = cache_len[:, None]  # [B, 1] per-slot positions
     for kind, p, i in _layers(cfg, params):
-        x, _state = apply_block(cfg, kind, p, x, positions,
-                                cache=_layer(cache[kind], i),
-                                cache_len=cache_len)
+        x, _state, _aux = apply_block(cfg, kind, p, x, positions,
+                                      cache=_layer(cache[kind], i),
+                                      cache_len=cache_len)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_from_hidden(cfg, params, x), cache
 
@@ -402,19 +484,19 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int):
     """Run the full prompt, returning (last-token logits, filled cache).
 
-    Only ``attn`` and ``global`` layers cache ``max_seq`` positions, so
-    only they refuse a longer prompt: ``local`` layers keep the last
-    ``window`` positions of a ring and ``rec`` layers a fixed-size state.
+    Only the layers that cache ``max_seq`` positions (``attn``, ``global``
+    and ``moe``) refuse a longer prompt: ``local`` layers keep the last
+    ``window`` positions of a ring and recurrent layers a fixed-size state.
     """
     B, S = tokens.shape
-    if S > max_seq and {"attn", "global"} & set(cfg.layer_counts()):
+    if S > max_seq and {"attn", "global", "moe"} & set(cfg.layer_counts()):
         raise ValueError(f"prompt of {S} tokens exceeds max_seq {max_seq}")
     cache = init_cache(cfg, B, max_seq, device=tokens.device)
     x = _embed(cfg, params, tokens)
     positions = torch.arange(S, device=tokens.device)
     for kind, p, i in _layers(cfg, params):
-        x, st = apply_block(cfg, kind, p, x, positions, return_state=True)
-        if kind == "rec":
+        x, st, _aux = apply_block(cfg, kind, p, x, positions, return_state=True)
+        if kind in STATE_KINDS:
             for name, leaf in st.items():
                 cache[kind][name][i].copy_(leaf)
             continue

@@ -1,0 +1,193 @@
+"""Mixture-of-Experts FFN with capacity-based dispatch (the JAX package's
+``models/moe.py`` at one device).
+
+Routing: top-k (llama4: k=1 + shared expert; olmoe: k=8).  Dispatch is the
+GShard scatter/gather pattern, grouped over batch rows:
+
+  1. router logits -> top-k (expert id, prob) per token;
+  2. position-in-expert via a cumulative sum over the one-hot choice (or a
+     stable sort, the same assignment); tokens beyond
+     ``capacity = cf * S * k / E`` are dropped to the residual path;
+  3. token activations are written into a dense [B, E, C + 1, D] buffer
+     whose last slot takes every dropped token and is sliced off;
+  4. batched expert SwiGLU over the stacked [E, D, F] weights;
+  5. gather back, scale by router prob, sum over the k slots.
+
+Equal router probabilities go to the lower expert index, as
+``jax.lax.top_k`` orders them (``torch.topk`` promises no order among
+ties).  Every index operation is one that is deterministic on the card
+under ``torch.use_deterministic_algorithms``: ``index_put`` without
+accumulate, gathers by advanced indexing (whose gradient is an
+accumulating ``index_put``), ``argsort(stable=True)`` and ``cumsum`` over
+integers.
+
+The expert products are batched products, as the JAX package computes
+them outside any Pallas kernel.  Two profiler spans, ``moe_ffn`` and
+``moe_experts`` (inside it), let a profile split the FFN's device time
+into routing and dispatch against the expert products.
+
+Aux losses: Switch load-balance loss + router z-loss, returned to the caller
+(weighted into the training objective), and the fraction of dropped slots.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from repro_torch.models.common import ParamSpec, fan_in_normal
+
+
+def moe_param_specs(layers: int, d: int, f_expert: int, n_experts: int,
+                    n_shared: int, d_shared_ff: int) -> dict:
+    specs = {
+        "router": ParamSpec(
+            (layers, d, n_experts), ("layers", "d_model_fsdp", "experts"),
+            stddev=fan_in_normal((d, n_experts)),
+        ),
+        "w_gate": ParamSpec(
+            (layers, n_experts, d, f_expert),
+            ("layers", "experts", "d_model_fsdp", "d_ff"),
+            stddev=fan_in_normal((d, f_expert)),
+        ),
+        "w_up": ParamSpec(
+            (layers, n_experts, d, f_expert),
+            ("layers", "experts", "d_model_fsdp", "d_ff"),
+            stddev=fan_in_normal((d, f_expert)),
+        ),
+        "w_down": ParamSpec(
+            (layers, n_experts, f_expert, d),
+            ("layers", "experts", "d_ff", "d_model_fsdp"),
+            stddev=fan_in_normal((f_expert, d)),
+        ),
+    }
+    if n_shared > 0:
+        specs["shared_w_gate"] = ParamSpec(
+            (layers, d, d_shared_ff), ("layers", "d_model_fsdp", "d_ff"),
+            stddev=fan_in_normal((d, d_shared_ff)),
+        )
+        specs["shared_w_up"] = ParamSpec(
+            (layers, d, d_shared_ff), ("layers", "d_model_fsdp", "d_ff"),
+            stddev=fan_in_normal((d, d_shared_ff)),
+        )
+        specs["shared_w_down"] = ParamSpec(
+            (layers, d_shared_ff, d), ("layers", "d_ff", "d_model_fsdp"),
+            stddev=fan_in_normal((d_shared_ff, d)),
+        )
+    return specs
+
+
+def position_in_expert_onehot(flat_e: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """GShard-literal positions: cumsum over a [..., T*k, E] one-hot.
+
+    ``flat_e``: [..., N] expert ids in token order; returns each slot's
+    position among the slots of its expert, in token order."""
+    onehot = F.one_hot(flat_e, num_experts)
+    pos_in_e = torch.cumsum(onehot, dim=-2) - onehot
+    return torch.sum(pos_in_e * onehot, dim=-1)
+
+
+def position_in_expert_sort(flat_e: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Sort-based positions: O(T*k) memory, identical assignment.
+
+    A stable argsort groups slots by expert while preserving token order, so
+    position-in-expert is the rank within the sorted run; the inverse
+    permutation (a second argsort) puts it back in token order."""
+    n = flat_e.shape[-1]
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, -1, order)
+    experts = torch.arange(num_experts, device=flat_e.device)
+    starts = torch.searchsorted(
+        sorted_e, experts.expand(*flat_e.shape[:-1], -1).contiguous())
+    pos_sorted = torch.arange(n, device=flat_e.device) - torch.gather(starts, -1, sorted_e)
+    return torch.gather(pos_sorted, -1, torch.argsort(order, dim=-1))
+
+
+def top_k_lowest_index_first(probs: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries of the last axis, equal
+    values in increasing index order, as ``jax.lax.top_k`` returns them."""
+    values, indices = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def moe_ffn(
+    x: torch.Tensor,
+    params: dict,
+    *,
+    num_experts: int,
+    top_k: int,
+    capacity_factor: float = 1.25,
+    compute_dtype=torch.bfloat16,
+    dispatch: str = "onehot",  # "onehot" (GShard baseline) | "sort" (O(S*k))
+) -> tuple[torch.Tensor, dict]:
+    """x: [B, S, D] -> (out [B, S, D], aux metrics/losses).
+
+    **Grouped dispatch**: routing positions, the [E, C, D] scatter and the
+    gather-back are computed per batch row, so a row's tokens never compete
+    with another row's for capacity.
+
+    ``params`` holds per-layer slices: router [D, E], w_gate/w_up [E, D, F],
+    w_down [E, F, D] (+ optional shared_* dense weights).
+    """
+    with record_function("moe_ffn"):
+        B, S, D = x.shape
+        E = num_experts
+        capacity = max(int(capacity_factor * S * top_k / E), 1)
+
+        router_logits = x.float() @ params["router"].float()  # [B, S, E]
+        probs = torch.softmax(router_logits, dim=-1)
+        top_p, top_e = top_k_lowest_index_first(probs, top_k)  # [B, S, k]
+        # Normalise the selected probabilities (Mixtral/OLMoE convention).
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+        flat_e = top_e.reshape(B, S * top_k)
+        pos_fn = (position_in_expert_sort if dispatch == "sort"
+                  else position_in_expert_onehot)
+        pos = pos_fn(flat_e, E)  # [B, S*k]
+        keep = pos < capacity
+        drop_fraction = 1.0 - torch.mean(keep.float())
+        safe_pos = torch.where(keep, pos, capacity)
+        rows = torch.arange(B, device=x.device)[:, None].expand(B, S * top_k)
+
+        # Every dropped slot writes the overflow slot ``capacity``, in any
+        # order; that slot is sliced off.
+        slots = x.to(compute_dtype).repeat_interleave(top_k, dim=1)  # [B, S*k, D]
+        buf = torch.zeros((B, E, capacity + 1, D), dtype=compute_dtype,
+                          device=x.device)
+        buf = buf.index_put((rows, flat_e, safe_pos), slots)[:, :, :capacity]
+
+        with record_function("moe_experts"):
+            g = torch.einsum("becd,edf->becf", buf,
+                             params["w_gate"].to(compute_dtype))
+            u = torch.einsum("becd,edf->becf", buf, params["w_up"].to(compute_dtype))
+            out_buf = torch.einsum("becf,efd->becd", F.silu(g) * u,
+                                   params["w_down"].to(compute_dtype))
+
+        # Gather back per row and combine over the k slots.
+        gathered = out_buf[rows, flat_e, torch.clamp(safe_pos, max=capacity - 1)]
+        gathered = torch.where(keep[..., None], gathered, 0.0)
+        weighted = gathered.float() * top_p.reshape(B, S * top_k, 1)
+        out = weighted.reshape(B, S, top_k, D).sum(dim=2)
+
+        if "shared_w_gate" in params:
+            xc = x.to(compute_dtype)
+            sg = xc @ params["shared_w_gate"].to(compute_dtype)
+            su = xc @ params["shared_w_up"].to(compute_dtype)
+            out = out + ((F.silu(sg) * su)
+                         @ params["shared_w_down"].to(compute_dtype)).float()
+
+        # -- aux losses ------------------------------------------------------
+        # Switch load-balance: E * sum_e f_e * P_e (f = fraction of tokens
+        # whose first choice is e, P = mean router prob for e).
+        dispatch_frac = F.one_hot(top_e[..., 0], E).float().mean(dim=(0, 1))
+        mean_prob = probs.mean(dim=(0, 1))
+        lb_loss = E * torch.sum(dispatch_frac * mean_prob)
+        z_loss = torch.mean(torch.logsumexp(router_logits, dim=-1) ** 2)
+
+        aux = {
+            "moe_lb_loss": lb_loss,
+            "moe_z_loss": z_loss,
+            "moe_drop_fraction": drop_fraction,
+        }
+        return out.to(x.dtype), aux

@@ -1,13 +1,13 @@
-"""Step-function factories for decoder-only LMs (the JAX package's
-``runtime/steps.py`` at one device).
+"""Step-function factories (the JAX package's ``runtime/steps.py`` at one
+device), for decoder-only and encoder-decoder models alike:
 
 * ``make_train_step``   — forward, backward and AdamW under warmup-cosine;
 * ``make_prefill_step`` — full-sequence forward to last-token logits;
 * ``make_decode_step``  — one token against the KV cache.
 
 PyTorch runs eagerly, so a factory returns a plain closure; there is no
-``jit`` and no sharding.  Encoder-decoder models, ``tp > 1`` and the
-dry-run structs are not ported yet (ROADMAP queue 1).
+``jit`` and no sharding.  ``tp > 1`` and the dry-run structs wait for the
+port's sharding work (ROADMAP item 9).
 """
 
 from __future__ import annotations
@@ -17,25 +17,22 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
+from repro_torch.models.layers import lm_logits
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import warmup_cosine
 
 
-def _decoder_only(cfg: ModelConfig) -> None:
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            f"(ROADMAP queue 1, 'the other block families')")
-
-
 def model_param_specs(cfg: ModelConfig):
-    _decoder_only(cfg)
+    if cfg.encoder_layers:
+        return encdec_mod.encdec_param_specs(cfg)
     return lm_mod.lm_param_specs(cfg)
 
 
 def loss_fn_for(cfg: ModelConfig) -> Callable:
-    _decoder_only(cfg)
+    if cfg.encoder_layers:
+        return lambda p, b: encdec_mod.encdec_loss(cfg, p, b)
     return lambda p, b: lm_mod.lm_loss(cfg, p, b)
 
 
@@ -54,7 +51,7 @@ def make_train_step(
 ) -> Callable:
     """``train_step(params, opt_state, batch, step) -> (params, opt_state,
     metrics)`` with metrics ``loss``, ``ce_loss``, ``grad_norm`` and ``lr``
-    (0-d tensors).  The parameters and moments are updated in place
+    (0-d tensors), and a MoE model's three aux values.  The parameters and moments are updated in place
     (``adamw.apply_updates``); the gradients live only inside the call."""
     loss_fn = loss_fn_for(cfg)
 
@@ -87,19 +84,32 @@ def make_train_step(
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
-    _decoder_only(cfg)
-
-    def prefill_step(params, batch):
-        x = lm_mod.forward_hidden(cfg, params, batch["tokens"])
-        return lm_mod.logits_from_hidden(cfg, params, x[:, -1:])[:, 0]
+    """``prefill_step(params, batch) -> [B, Vp]`` last-token logits.  An
+    encoder-decoder model encodes ``batch["frames"]`` first; a decoder-only
+    model takes ``batch["extra_embeds"]`` as its prefix where present."""
+    if cfg.encoder_layers:
+        def prefill_step(params, batch):
+            enc_out = encdec_mod.encode(cfg, params, batch["frames"])
+            x = encdec_mod.decode_train(cfg, params, batch["tokens"], enc_out)
+            return lm_logits(x[:, -1:], params["lm_head"],
+                             lm_mod._dtype(cfg.compute_dtype))[:, 0]
+    else:
+        def prefill_step(params, batch):
+            x, _aux = lm_mod.forward_hidden(
+                cfg, params, batch["tokens"],
+                extra_embeds=batch.get("extra_embeds"))
+            return lm_mod.logits_from_hidden(cfg, params, x[:, -1:])[:, 0]
 
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig) -> Callable:
-    _decoder_only(cfg)
-
-    def decode_step(params, cache, tokens, cache_len):
-        return lm_mod.decode_step(cfg, params, cache, tokens, cache_len)
+    if cfg.encoder_layers:
+        def decode_step(params, cache, tokens, cache_len):
+            return encdec_mod.encdec_decode_step(cfg, params, cache, tokens,
+                                                 cache_len)
+    else:
+        def decode_step(params, cache, tokens, cache_len):
+            return lm_mod.decode_step(cfg, params, cache, tokens, cache_len)
 
     return decode_step

@@ -1,10 +1,10 @@
-"""The port's decoder-only LM (dense and recurrent) against the JAX
-package's, on the CPU.
+"""The port's decoder-only LM (every block family: dense, recurrent, MoE,
+xLSTM, and the ViT prefix) against the JAX package's, on the CPU.
 
 Parameters come from the JAX package's ``init_params`` (with random, nonzero
-RMS-norm scales, so that ``1 + scale`` is exercised, and random RG-LRU gate
-biases ``b_a``/``b_x``) and cross as numpy
-through ``params_from_numpy``; tokens come from numpy.  Both run with
+RMS-norm scales, so that ``1 + scale`` is exercised, random RG-LRU gate
+biases ``b_a``/``b_x`` and random xLSTM group-norm scales) and cross as
+numpy through ``params_from_numpy``; tokens come from numpy.  Both run with
 ``compute_dtype="float32"``.  Logits must agree within 2e-4, the tolerance
 of the JAX package's own decode-vs-forward test (``tests/test_archs.py``).
 The single layers agree within 1e-5 (float32 products of at most a few
@@ -42,8 +42,8 @@ from repro_torch.runtime import steps
 LOGIT_TOL = 2e-4
 LAYER_TOL = 1e-5
 DENSE = ["yi-9b", "phi3-medium-14b", "command-r-35b", "gemma3-4b"]
-PORTED = DENSE + ["recurrentgemma-2b"]
-NOT_PORTED = ["olmoe-1b-7b", "llama4-maverick-400b-a17b", "xlstm-350m"]
+PORTED = DENSE + ["recurrentgemma-2b", "olmoe-1b-7b", "llama4-maverick-400b-a17b",
+                  "xlstm-350m"]
 # Prompt lengths: recurrentgemma's is longer than its smoke window of 32,
 # so the local layers' ring wraps.
 PROMPT_LEN = {"recurrentgemma-2b": 46}
@@ -64,7 +64,8 @@ def _shared_params(jcfg, seed=0):
     def norms(node, key=""):
         if isinstance(node, dict):
             return {k: norms(v, k) for k, v in node.items()}
-        if key in ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "b_a", "b_x"):
+        if key in ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "b_a", "b_x",
+                   "norm"):
             return (0.2 * rng.standard_normal(node.shape)).astype(np.float32)
         return node
 
@@ -105,13 +106,15 @@ def _leaf_rows(leaves):
     return [(p, s.shape, s.logical_axes, s.init, s.stddev) for p, s in leaves]
 
 
-@pytest.mark.parametrize("name", PORTED + ["internvl2-2b"])
+@pytest.mark.parametrize("name", sorted(JAX_ARCHS))
 def test_param_specs_equal_the_jax_package_at_tp1(name):
-    specs = lm.lm_param_specs(get_config(name))
-    jspecs = jax_lm.lm_param_specs(jax_get_config(name), 1)
+    """Every config, the encoder-decoder through ``model_param_specs``."""
+    specs = steps.model_param_specs(get_config(name))
+    jspecs = jax_steps.model_param_specs(jax_get_config(name), 1)
     assert _leaf_rows(_iter_leaves(specs)) == _leaf_rows(jax_iter_leaves(jspecs))
     assert count_params(specs) == jax_count_params(jspecs)
-    assert steps.model_param_specs(get_config(name)) == specs
+    if not get_config(name).encoder_layers:
+        assert lm.lm_param_specs(get_config(name)) == specs
 
 
 def test_yi_9b_at_full_width_has_its_published_size():
@@ -129,14 +132,16 @@ def test_recurrentgemma_2b_at_full_width_has_its_size():
     assert specs["blocks"]["rec"]["rec"]["rglru"]["lambda"].shape == (18, 2560)
 
 
-@pytest.mark.parametrize("name", NOT_PORTED + ["seamless-m4t-large-v2"])
-def test_unported_families_raise(name):
-    cfg = get_config(name).smoke()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.model_param_specs(cfg)
-    if not cfg.encoder_layers:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            lm.cache_spec(cfg, 1, 8)
+@pytest.mark.parametrize("name, lo, hi", [
+    ("olmoe-1b-7b", 6.9e9, 6.95e9),  # 13.8 GB in bf16
+    ("llama4-maverick-400b-a17b", 3.9e11, 4.0e11),  # "400b"
+    ("xlstm-350m", 2.5e8, 2.6e8),  # the config's 24 blocks; d_ff 0
+    ("internvl2-2b", 1.85e9, 1.9e9),
+    ("seamless-m4t-large-v2", 2.0e9, 2.05e9),
+])
+def test_other_families_at_full_width_have_their_size(name, lo, hi):
+    n = count_params(steps.model_param_specs(get_config(name)))
+    assert lo < n < hi
 
 
 def test_init_params_is_seeded_per_leaf():
@@ -155,6 +160,25 @@ def test_init_params_is_seeded_per_leaf():
     wq = a["blocks"]["attn"]["wq"]  # [layers, 64, 64], stddev 1/8
     assert abs(float(wq.std()) - 0.125) < 0.01
     assert not torch.equal(wq, a["blocks"]["attn"]["wk"])  # own generator each
+
+
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "llama4-maverick-400b-a17b",
+                                  "xlstm-350m", "seamless-m4t-large-v2"])
+def test_params_from_numpy_takes_every_family_key_for_key(name):
+    """The MoE, xLSTM and encoder-decoder trees (``moe``, ``core/r``,
+    ``encoder``/``decoder``/``cross`` subtrees) cross unchanged."""
+    jspecs = jax_steps.model_param_specs(jax_get_config(name).smoke(), 1)
+    rng = np.random.default_rng(0)
+    tree = jax.tree.map(lambda sp: rng.standard_normal(sp.shape).astype(np.float32),
+                        jspecs, is_leaf=lambda x: hasattr(x, "logical_axes"))
+    out = params_from_numpy(tree, "cpu")
+    want = jax.tree_util.tree_flatten_with_path(tree)[0]
+    got = jax.tree_util.tree_flatten_with_path(out)[0]
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_p, w) in zip(got, want):
+        assert np.array_equal(g.numpy(), w), path
+    assert (jax.tree.structure(jax.tree.map(lambda s: 0, steps.model_param_specs(
+        get_config(name).smoke()))) == jax.tree.structure(jax.tree.map(lambda a: 0, out)))
 
 
 def test_params_from_numpy_keeps_keys_and_values():
@@ -224,9 +248,11 @@ def test_prefill_and_decode_logits_match_jax(name):
     jt = jnp.asarray(toks, jnp.int32)
     tt = torch.from_numpy(toks)
 
-    jx, _ = jax_lm.forward_hidden(jcfg, jp, jt)
-    _close(lm.logits_from_hidden(cfg, tp, lm.forward_hidden(cfg, tp, tt)),
+    jx, jaux = jax_lm.forward_hidden(jcfg, jp, jt)
+    tx, taux = lm.forward_hidden(cfg, tp, tt)
+    _close(lm.logits_from_hidden(cfg, tp, tx),
            jax_lm.logits_from_hidden(jcfg, jp, jx), LOGIT_TOL)
+    _aux_close(taux, jaux)
 
     jl, jcache = jax_lm.prefill(jcfg, jp, jt[:, :S - 1], max_seq=S + 8)
     tl, tcache = lm.prefill(cfg, tp, tt[:, :S - 1], S + 8)
@@ -251,8 +277,17 @@ def test_prefill_and_decode_logits_match_jax(name):
     _caches_close(tcache, jcache)
 
 
+def _aux_close(taux, jaux) -> None:
+    """The MoE aux values, summed over the layers: keys equal, values within
+    1e-5 (float32 sums in another order)."""
+    assert sorted(taux) == sorted(jaux)
+    for key, want in jaux.items():
+        assert abs(float(taux[key]) - float(want)) <= LAYER_TOL, (key, taux, jaux)
+
+
 def _caches_close(tcache, jcache) -> None:
-    """Every leaf (k/v, and h/conv for rec) with its dtype and shape."""
+    """Every leaf (k/v; h/conv for rec; conv/C/n/m for mlstm; c/n/m/h for
+    slstm) with its dtype and shape."""
     assert {k: sorted(v) for k, v in tcache.items()} == \
            {k: sorted(v) for k, v in jcache.items()}
     for kind, leaves in jcache.items():
@@ -295,5 +330,104 @@ def test_recurrent_prefill_takes_a_prompt_longer_than_max_seq():
     max_seq = 40  # > the window of 32, < the prompt
     jl, jcache = jax_lm.prefill(jcfg, jp, jnp.asarray(toks, jnp.int32), max_seq)
     tl, tcache = lm.prefill(cfg, tp, torch.from_numpy(toks), max_seq)
+    _close(tl, jl, LOGIT_TOL)
+    _caches_close(tcache, jcache)
+
+
+def _moe_prefill_with_capacity_drops(arch):
+    """At the full configs' capacity factor of 1.25 (the smoke configs are
+    dropless) a prompt's tokens drop, and still the logits, the aux values
+    and the prefill's cache agree; a decode step (S = 1) drops nothing."""
+    jcfg, cfg = (dataclasses.replace(c, capacity_factor=1.25)
+                 for c in _configs(arch))
+    jp, tp = _shared_params(jcfg, seed=6)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 40))
+    jx, jaux = jax_lm.forward_hidden(jcfg, jp, jnp.asarray(toks, jnp.int32))
+    tx, taux = lm.forward_hidden(cfg, tp, torch.from_numpy(toks))
+    assert float(taux["moe_drop_fraction"]) > 0.0
+    _aux_close(taux, jaux)
+    _close(lm.logits_from_hidden(cfg, tp, tx), jax_lm.logits_from_hidden(jcfg, jp, jx),
+           LOGIT_TOL)
+    jl, jcache = jax_lm.prefill(jcfg, jp, jnp.asarray(toks, jnp.int32), max_seq=48)
+    tl, tcache = lm.prefill(cfg, tp, torch.from_numpy(toks), 48)
+    _close(tl, jl, LOGIT_TOL)
+    _caches_close(tcache, jcache)
+    nxt = np.array(jnp.argmax(jl[:, 0, : cfg.vocab_size], axis=-1))[:, None]
+    jd, _ = jax_lm.decode_step(jcfg, jp, jcache, jnp.asarray(nxt, jnp.int32),
+                               jnp.int32(40))
+    td, _ = lm.decode_step(cfg, tp, tcache, torch.from_numpy(nxt), 40)
+    _close(td, jd, LOGIT_TOL)
+
+
+def test_moe_prefill_with_capacity_drops_matches_jax():
+    """olmoe-1b-7b: top-8 of its experts, no shared expert."""
+    _moe_prefill_with_capacity_drops("olmoe-1b-7b")
+
+
+def test_maverick_prefill_with_capacity_drops_matches_jax():
+    """llama4-maverick: top-1 with the shared expert, its MoE layers
+    interleaved with dense ones."""
+    _moe_prefill_with_capacity_drops("llama4-maverick-400b-a17b")
+
+
+def test_extra_embeds_forward_matches_jax():
+    """internvl2's ViT stub: F embeddings replace the first F positions,
+    unscaled, in the forward and in the prefill step."""
+    jcfg, cfg = _configs("internvl2-2b")
+    jp, tp = _shared_params(jcfg, seed=7)
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, cfg.vocab_size, (2, 24))
+    extra = rng.standard_normal((2, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    jx, _ = jax_lm.forward_hidden(jcfg, jp, jnp.asarray(toks),
+                                  extra_embeds=jnp.asarray(extra))
+    tx, aux = lm.forward_hidden(cfg, tp, torch.from_numpy(toks),
+                                extra_embeds=torch.from_numpy(extra))
+    assert aux == {}
+    _close(lm.logits_from_hidden(cfg, tp, tx), jax_lm.logits_from_hidden(jcfg, jp, jx),
+           LOGIT_TOL)
+    plain, _ = lm.forward_hidden(cfg, tp, torch.from_numpy(toks))
+    assert not torch.allclose(plain, tx)  # the prefix changed the forward
+    batch = {"tokens": toks, "extra_embeds": extra}
+    want = jax_steps.make_prefill_step(jcfg)(jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    got = steps.make_prefill_step(cfg)(tp, {k: torch.from_numpy(v) for k, v in batch.items()})
+    _close(got, want, LOGIT_TOL)
+
+
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "xlstm-350m", "internvl2-2b"])
+def test_lm_loss_matches_jax(name):
+    """Loss and metrics: CE, and for MoE models 0.01 * lb + 0.001 * z on
+    top with the three aux values reported; internvl2 with its prefix."""
+    jcfg, cfg = _configs(name)
+    jp, tp = _shared_params(jcfg, seed=8)
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, cfg.vocab_size, (2, 33))
+    batch = {"tokens": toks[:, :32], "targets": toks[:, 1:]}
+    if cfg.frontend_len:
+        batch["extra_embeds"] = rng.standard_normal(
+            (2, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    jl, jm = jax_lm.lm_loss(jcfg, jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    tl, tm = lm.lm_loss(cfg, tp, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert sorted(tm) == sorted(jm)
+    for key, want in jm.items():
+        assert abs(float(tm[key]) - float(want)) <= LAYER_TOL, (key, tm, jm)
+    assert abs(float(tl) - float(jl)) <= LAYER_TOL
+
+
+def test_xlstm_prefill_takes_a_prompt_its_chunk_does_not_divide():
+    """A 70-token prompt at the mLSTM's chunk of 64: the JAX prefill raises
+    (its chunkwise form needs chunk | S); the port's runs a last chunk of 6
+    and equals the JAX package's prefill of 64 tokens followed by 6 decode
+    steps, logits and every cache leaf within 2e-4."""
+    jcfg, cfg = _configs("xlstm-350m")
+    jp, tp = _shared_params(jcfg, seed=9)
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 70))
+    with pytest.raises(ValueError, match="not divisible"):
+        jax_lm.prefill(jcfg, jp, jnp.asarray(toks, jnp.int32), max_seq=80)
+    jl, jcache = jax_lm.prefill(jcfg, jp, jnp.asarray(toks[:, :64], jnp.int32), max_seq=80)
+    for t in range(64, 70):
+        jl, jcache = jax_lm.decode_step(jcfg, jp, jcache,
+                                        jnp.asarray(toks[:, t:t + 1], jnp.int32),
+                                        jnp.int32(t))
+    tl, tcache = lm.prefill(cfg, tp, torch.from_numpy(toks), 80)
     _close(tl, jl, LOGIT_TOL)
     _caches_close(tcache, jcache)

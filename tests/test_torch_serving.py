@@ -44,6 +44,9 @@ def _shared(name, seed=0):
             if key in block:
                 block[key] = (0.2 * rng.standard_normal(block[key].shape)
                               ).astype(np.float32)
+        if "core" in block:  # nonzero xLSTM group-norm scales
+            block["core"]["norm"] = (0.2 * rng.standard_normal(
+                block["core"]["norm"].shape)).astype(np.float32)
         if "rec" in block:  # nonzero RG-LRU gate biases
             gates = block["rec"]["rglru"]
             for key in ("b_a", "b_x"):
@@ -60,7 +63,8 @@ def _requests(vocab, n=7, seed=1):
              int(rng.integers(2, 7))) for rid in range(n)]
 
 
-@pytest.mark.parametrize("name", ["yi-9b", "gemma3-4b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("name", ["yi-9b", "gemma3-4b", "recurrentgemma-2b",
+                                  "olmoe-1b-7b", "xlstm-350m"])
 def test_engine_tokens_equal_the_jax_engine(name):
     jcfg, cfg, jp, tp = _shared(name)
     reqs = _requests(cfg.vocab_size)
@@ -98,10 +102,11 @@ def test_run_until_drained_equals_the_jax_engine(name):
     assert sorted(c.rid for c in tdone) == list(range(8))
 
 
-@pytest.mark.parametrize("name", ["yi-9b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("name", ["yi-9b", "recurrentgemma-2b", "olmoe-1b-7b",
+                                  "llama4-maverick-400b-a17b", "xlstm-350m"])
 def test_engine_equals_offline_greedy_decode(name):
-    """Slots are spliced in place (K/V, and h/conv for rec) and decoded
-    together; each completion equals its own batch-1 decode."""
+    """Slots are spliced in place (K/V; h/conv for rec; the xLSTM states)
+    and decoded together; each completion equals its own batch-1 decode."""
     _, cfg, _, tp = _shared(name, seed=3)
     eng = ServingEngine(cfg, tp, max_slots=2, max_seq=MAX_SEQ)
     for rid, prompt, n_new in _requests(cfg.vocab_size, n=5, seed=4):
@@ -132,7 +137,8 @@ def test_serving_engine_demand_driven_idle_slots():
         eng.submit(Request(rid=9, prompt=[1], max_new_tokens=1))
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["yi-9b", "recurrentgemma-2b", "olmoe-1b-7b",
+                                  "xlstm-350m"])
 def test_cli_and_pipeline_run_on_the_cpu_when_asked(capsys, arch):
     done = serve_cli.main(["--arch", arch, "--device", "cpu",
                            "--requests", "5", "--max-new", "4"])
@@ -155,3 +161,10 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         call()
+
+
+def test_engine_refuses_an_encoder_decoder_model():
+    """As the JAX engine does: the decoder-only engine has no frames."""
+    cfg = get_config("seamless-m4t-large-v2").smoke()
+    with pytest.raises(NotImplementedError, match="decoder-only"):
+        ServingEngine(cfg, {"embed": torch.zeros(2, 2)})

@@ -2,8 +2,10 @@
 
 * Trainer parity from one parameter tree: a JAX ``Trainer(num_steps=0)``
   writes step 0; a JAX trainer and the port's resume copies of it and take
-  3 steps on the ``yi-9b`` and ``recurrentgemma-2b`` smoke configs in
-  float32.  ``loss`` and ``grad_norm`` must agree within 1e-4 at every
+  3 steps on the ``yi-9b``, ``recurrentgemma-2b``, ``olmoe-1b-7b``,
+  ``xlstm-350m``, ``seamless-m4t-large-v2`` (frames) and ``internvl2-2b``
+  (its ViT prefix) smoke configs in float32.  ``loss``, ``ce_loss``,
+  ``grad_norm`` and the MoE aux values must agree within 1e-4 at every
   step (they agree to a few 1e-6: float32 sums in another order).
 * The counterparts of ``tests/test_runtime.py``'s trainer and straggler
   cases, against the port's ``Trainer`` (the crash replay bit-identical).
@@ -33,14 +35,19 @@ from repro_torch.runtime.executor import Trainer, TrainerConfig
 from repro_torch.runtime.failures import FailureEvent, FailurePlan, StragglerMonitor
 
 PARITY_TOL = 1e-4
-PORTED = ["yi-9b", "phi3-medium-14b", "command-r-35b", "gemma3-4b", "recurrentgemma-2b"]
+PORTED = ["yi-9b", "phi3-medium-14b", "command-r-35b", "gemma3-4b", "recurrentgemma-2b",
+          "olmoe-1b-7b", "llama4-maverick-400b-a17b", "xlstm-350m", "internvl2-2b",
+          "seamless-m4t-large-v2"]
+MOE_AUX = {"moe_lb_loss", "moe_z_loss", "moe_drop_fraction"}
 TINY = ShapeConfig("tiny", seq_len=32, global_batch=4, kind="train")
 
 
 # -- parity with the JAX trainer ------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["yi-9b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("name", ["yi-9b", "recurrentgemma-2b", "olmoe-1b-7b",
+                                  "xlstm-350m", "seamless-m4t-large-v2",
+                                  "internvl2-2b"])
 def test_trainer_matches_the_jax_trainer_from_one_checkpoint(name, tmp_path):
     jcfg = dataclasses.replace(jax_get_config(name).smoke(), compute_dtype="float32")
     cfg = dataclasses.replace(get_config(name).smoke(), compute_dtype="float32")
@@ -59,7 +66,8 @@ def test_trainer_matches_the_jax_trainer_from_one_checkpoint(name, tmp_path):
     tr.run()
     assert [m["step"] for m in tr.metrics_history] == [0, 1, 2]
     for got, want in zip(tr.metrics_history, jtr.metrics_history, strict=True):
-        for key in ("loss", "ce_loss", "grad_norm"):
+        assert set(got) == set(want)
+        for key in ("loss", "ce_loss", "grad_norm", *sorted(MOE_AUX & set(want))):
             assert abs(got[key] - want[key]) <= PARITY_TOL, (key, got, want)
         assert np.float32(got["lr"]) == pytest.approx(np.float32(want["lr"]), rel=1e-6)
 
@@ -148,10 +156,18 @@ def test_train_step_runs_and_is_finite(name):
     opt_cfg = AdamWConfig()
     opt_state = adamw.init_state(params, opt_cfg)
     step = steps_mod.make_train_step(cfg, opt_cfg, warmup_steps=1, total_steps=4)
-    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 32)))
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)))
     batch = {"tokens": toks, "targets": torch.roll(toks, -1, dims=1)}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.from_numpy(
+            rng.standard_normal((2, 32, cfg.d_model)).astype(np.float32))
+    elif cfg.frontend_len:
+        batch["extra_embeds"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.frontend_len, cfg.d_model)).astype(np.float32))
     params, opt_state, metrics = step(params, opt_state, batch, 0)
-    assert set(metrics) == {"loss", "ce_loss", "grad_norm", "lr"}
+    aux = MOE_AUX if "moe" in cfg.layer_pattern else set()
+    assert set(metrics) == {"loss", "ce_loss", "grad_norm", "lr"} | aux
     assert torch.isfinite(metrics["loss"]), name
     assert 2.0 < float(metrics["ce_loss"]) < 12.0  # ~ln(vocab) at init
     assert torch.isfinite(metrics["grad_norm"])
@@ -177,3 +193,20 @@ def test_train_launcher_runs_a_crash_and_restore(tmp_path, capsys):
     assert "=== training finished ===" in text and "restarts: 1" in text
     assert train.main(["--arch", "yi-9b", "--plan"]) is None
     assert "DeploymentPlan" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-2b",
+                                  "olmoe-1b-7b", "xlstm-350m"])
+def test_train_launcher_takes_every_family(arch, tmp_path, capsys):
+    """Frames for the encoder-decoder and the ViT prefix for internvl2 come
+    from the data pipeline; the MoE aux values are among the metrics."""
+    from repro_torch.launch import train
+
+    out = train.main(["--arch", arch, "--smoke", "--steps", "2", "--batch", "2",
+                      "--seq", "16", "--checkpoint-dir", str(tmp_path),
+                      "--device", "cpu"])
+    assert out["final_step"] == 2 and out["restarts"] == 0
+    metrics = out["last_metrics"]
+    assert np.isfinite(metrics["loss"])
+    assert ("moe_lb_loss" in metrics) == (arch == "olmoe-1b-7b")
+    assert "=== training finished ===" in capsys.readouterr().out
