@@ -65,7 +65,23 @@ per source, all at once) and drives the port's paths on the card:
    trained at full depth with its ViT stub's 256 embeddings, and one bf16
    prefill step with them.  Every phase's RMS-norm and flash launches must
    equal the counts its layer kinds give; each path's launches are then
-   replayed at their shapes (``by_path`` in the kernels line).
+   replayed at their shapes, beside the bound of the same work and the
+   library call on the same inputs (``by_path`` in the kernels line).
+6. Sharding on one card (a one-rank process group, a 1 x 1 mesh):
+   recurrentgemma-2b's full-width train step traced by
+   ``ClusterBuilder.build_step`` with ``training_rules`` (fake tensors: no
+   allocation) and run on DTensor parameters from ``init_params(...,
+   rules=)``, its loss and grad norm equal to part 4's unsharded steps,
+   its launches exact, its predicted memory and traced FLOPs beside the
+   measured peak and the analytic model FLOPs (MFU); yi-9b served through
+   ``ServingEngine(rules=decode_rules(mesh))`` beside the engine without
+   rules (tokens equal; a float32 depth cut equal to offline greedy); the
+   padded tp = 16 plans of phi3-medium-14b (grouped, 48 / 12 heads) and
+   llama4-maverick (``expand_kv``, 48 over 8) in float32 against tp = 1
+   (logits within 2e-4, tokens equal, every flash launch at 48 query
+   heads); and ``python -m repro_torch.launch.dryrun`` / ``roofline`` for
+   yi-9b on the 16 x 16 fake mesh, run on the host with no device memory
+   left behind.
 
 Each phase prints one JSON line; any failure exits non-zero.  The line
 before the last lists every kernel with its launches on its path, its
@@ -159,6 +175,14 @@ from repro_torch.quickstart import (  # noqa: E402
     mandelbrot_spec,
 )
 from repro_torch.configs.base import TRAIN_4K, ShapeConfig  # noqa: E402
+from repro_torch.core.channels import decode_rules, training_rules  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    HBM_BW,
+    PEAK_FLOPS_BF16,
+    make_smoke_mesh,
+)
+from repro_torch.models.convert import pad_for_tp  # noqa: E402
+from repro_torch.models.flops import step_flops  # noqa: E402
 from repro_torch.data.pipeline import DataPipeline, SyntheticLM  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime import steps as steps_mod  # noqa: E402
@@ -167,13 +191,13 @@ from repro_torch.runtime.failures import FailureEvent, FailurePlan  # noqa: E402
 from repro_torch.runtime.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.serve_pipeline import offline_greedy  # noqa: E402
 
-# H100 SXM: 132 SMs of 128 FP32 lanes; HBM3 at 3.35 TB/s; dense bf16 tensor
-# cores at 989 TFLOP/s; FP32 outside the tensor cores 67 TFLOP/s (NVIDIA
-# data sheet).
+# H100 SXM: 132 SMs of 128 FP32 lanes; FP32 outside the tensor cores 67
+# TFLOP/s (NVIDIA data sheet); HBM3 bandwidth and the dense bf16 tensor-core
+# peak come from the port's one source of them, ``launch/mesh.py``.
 SMS = 132
 FP32_LANES = 128
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS_PER_S = 989e12
+HBM_BYTES_PER_S = HBM_BW
+BF16_FLOPS_PER_S = PEAK_FLOPS_BF16
 FP32_FLOPS_PER_S = 67e12
 # FP32 instructions per live iteration: two squares, the escape test's add
 # and compare, 2*zx, the two fmas, the add of x0 (csrc/mandelbrot.cu).
@@ -309,6 +333,17 @@ XLSTM_TRAIN_STEPS, MOE_TRAIN_STEPS, VLM_TRAIN_STEPS = 2, 3, 2
 ENCDEC_CHECK_LAYERS, ENCDEC_CHECK_FRAMES, ENCDEC_CHECK_TOKENS = 4, 64, 12
 ENCDEC_TOL = 2e-4  # tests/test_archs.py::test_encdec_decode_matches_forward
 ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_NEW, ENCDEC_TRAIN_SEQ = 2, 1024, 32, 1024
+
+# Part 6, sharding on one card.  spmd_train: recurrentgemma-2b's train_full
+# step again over a one-device mesh, DTensor parameters; equal to the
+# unsharded step within SPMD_TOL relative (the same kernels on the same
+# shards).  tp_plan: the padded plans at tp 16 in float32, logits within
+# TP_TOL (tests/test_archs.py's padding tolerance) of tp 1's.
+SPMD_TOL = 1e-6
+PHI3 = "phi3-medium-14b"
+TP_PLAN, TP_TOL = 16, 2e-4
+TP_PLAN_PROMPT, TP_PLAN_NEW, TP_PLAN_MAX_SEQ = 256, 8, 512
+DRYRUN_TIMEOUT_S = 600
 
 
 def emit(obj: dict) -> None:
@@ -978,6 +1013,7 @@ def main() -> None:
     # The other block families, each path's launches counted from zero;
     # their RMS-norm and flash launches join those rows under "by_path".
     new_paths = by_path(other_families())
+    spmd_phases(train)
     for row in rows:
         key = {"rmsnorm": "rmsnorm", "flash_attention_forward": "flash"}.get(row["name"])
         if key:
@@ -2129,7 +2165,8 @@ def train_full() -> dict:
     del params, opt_state
     torch.cuda.empty_cache()
     return {"cfg": cfg, "launches": launches, "mean_step_ms": mean_ms,
-            "device_ms": device_ms}
+            "device_ms": device_ms, "first_loss": first_loss, "steps": rows,
+            "peak_memory_gb": peak_gb}
 
 
 def train_kernel_rows(train: dict, errs: dict, clock_hz: float) -> list[dict]:
@@ -2588,10 +2625,43 @@ def other_families() -> list[dict]:
     return paths
 
 
+def by_path_bound_ms(kernel: str, shapes, scale_bytes: int) -> tuple[float, str]:
+    """The least time of a path's launches: bytes at HBM_BW (each input read
+    once, each output written once) and, for flash, its products at the
+    bf16 tensor-core peak; the larger, and which it was."""
+    if kernel == "rmsnorm":
+        nbytes = sum(2 * n * d * 2 + d * scale_bytes for n, d in shapes)
+        return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+    flops = nbytes = 0
+    for b, h, kv, sq, skv, d, causal, window in shapes:
+        pairs = visible_pairs(sq, window) if causal else sq * skv
+        flops += 4 * b * h * d * pairs
+        nbytes += 2 * b * d * (2 * h * sq + 2 * kv * skv)
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def flash_library(q, k, v, causal: bool, window: int, masks: dict):
+    """``scaled_dot_product_attention`` on the kernel's inputs: causal, a
+    band mask where a window cuts the prompt, or no mask."""
+    sq = q.shape[2]
+    if causal and 0 < window < sq:
+        key = (sq, window)
+        if key not in masks:
+            masks[key] = torch.ones((sq, sq), dtype=torch.bool, device="cuda"
+                                    ).tril().triu(-(window - 1))
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=masks[key],
+                                              enable_gqa=True)
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+
+
 def by_path(paths: list[dict]) -> dict[str, dict[str, dict]]:
     """Each new path's RMS-norm and flash launches replayed, launch for
-    launch, at the shapes it gave them: {kernel: {path: {launches, ms}}}.
-    The replayed count must equal the count the path's run made."""
+    launch, at the shapes it gave them: {kernel: {path: {launches, ms,
+    bound_ms, bound_by, library_ms}}}, the library call (``F.rms_norm``;
+    SDPA) on the same inputs.  The replayed count must equal the count the
+    path's run made."""
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     gen = torch.Generator("cuda").manual_seed(10)
     bf16 = torch.bfloat16
@@ -2607,15 +2677,28 @@ def by_path(paths: list[dict]) -> dict[str, dict[str, dict]]:
             b, h, kv, sq, skv, d, _causal, _window = launch
             fl_in.setdefault(launch, flash_inputs(b, h, kv, sq, skv, d, bf16, gen, True))
 
+        weights = {shape: (1.0 + scale.float()).to(x.dtype)
+                   for shape, (x, scale) in rms_in.items()}
+        masks: dict = {}
+
         def rms_call(shape, inputs=rms_in):
             return lambda: rms_kernel.rms_norm_cuda(*inputs[shape])
+
+        def rms_library(shape, inputs=rms_in):
+            return lambda: F.rms_norm(inputs[shape][0], (shape[1],), weights[shape],
+                                      1e-6)
 
         def flash_call(launch, inputs=fl_in):
             return lambda: flash_kernel.flash_attention_cuda(
                 *inputs[launch], causal=launch[6], window=launch[7])
 
-        for kernel, shapes, make in (("rmsnorm", path["rmsnorm"], rms_call),
-                                     ("flash", path["flash"], flash_call)):
+        def flash_lib(launch, inputs=fl_in):
+            return lambda: flash_library(*inputs[launch], launch[6], launch[7], masks)
+
+        scale_bytes = torch.empty((), dtype=path["scale_dtype"]).element_size()
+        for kernel, shapes, make, library in (
+                ("rmsnorm", path["rmsnorm"], rms_call, rms_library),
+                ("flash", path["flash"], flash_call, flash_lib)):
             if len(shapes) != path["launches"][kernel]:
                 raise SystemExit(f"{path['phase']}: replayed {len(shapes)} {kernel} "
                                  f"launches, the path made {path['launches'][kernel]}")
@@ -2623,13 +2706,345 @@ def by_path(paths: list[dict]) -> dict[str, dict[str, dict]]:
                 continue
             for shape in set(shapes):
                 make(shape)()  # warm-up, every shape once
+                library(shape)()
             torch.cuda.synchronize()
             ms, paced = spun_device_ms([make(shape) for shape in shapes], clock_hz)
+            lib_ms, lib_paced = spun_device_ms([library(shape) for shape in shapes],
+                                               clock_hz)
+            bound_ms, bound_by = by_path_bound_ms(kernel, shapes, scale_bytes)
             out[kernel][path["phase"]] = {"launches": len(shapes), "ms": ms,
-                                          "host_paced": paced}
-        del rms_in, fl_in
+                                          "host_paced": paced, "bound_ms": bound_ms,
+                                          "bound_by": bound_by, "library_ms": lib_ms,
+                                          "library_host_paced": lib_paced}
+        del rms_in, fl_in, weights, masks
     emit({"phase": "by_path", **out})
     return out
+
+
+# ---------------------------------------------------------------------------
+# Part 6: sharding and the SPMD tools on one card
+# ---------------------------------------------------------------------------
+
+
+def placed(specs, params, rules):
+    """A plain parameter tree as DTensors placed by ``rules`` (on a
+    one-device mesh each leaf is its own shard: no copy)."""
+    if not isinstance(specs, dict):
+        return rules.distribute(params, specs.logical_axes)
+    return {k: placed(specs[k], params[k], rules) for k in specs}
+
+
+def local_tree(tree):
+    """A DTensor tree's local shards (on one device: the whole tensors)."""
+    if isinstance(tree, dict):
+        return {k: local_tree(v) for k, v in tree.items()}
+    return tree.to_local()
+
+
+def spmd_train(mesh, train: dict) -> dict:
+    """recurrentgemma-2b at full width and depth, B 1 x S 2048, its train
+    step traced by ``ClusterBuilder.build_step`` over a one-device mesh with
+    ``training_rules`` (fake tensors: no allocation) and then run eagerly
+    on DTensor parameters from ``init_params(..., rules=)``: a warm-up step
+    and TRAIN_STEPS timed ones from ``train_full``'s parameters and
+    batches.  Loss and grad norm must equal ``train_full``'s (within
+    SPMD_TOL relative), every step's launches the expected ones."""
+    cfg = get_config(RG)
+    rules = training_rules(mesh)
+    specs = lm.lm_param_specs(cfg, 1)
+    params = init_params(specs, 0, "cuda", torch.float32, rules=rules)
+    opt_cfg = adamw.AdamWConfig()
+    opt_state = adamw.init_state(params, opt_cfg)
+    step_fn = steps_mod.make_train_step(cfg, opt_cfg, tp=1, rules=rules,
+                                        peak_lr=3e-4, warmup_steps=2,
+                                        total_steps=TRAIN_STEPS + 2)
+    pipe = DataPipeline(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0),
+                        "cuda", rules)
+    batch0 = pipe.get(0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    art = ClusterBuilder(mesh=mesh, rules=rules).build_step(
+        step_fn, (params, opt_state, batch0, 0), name="spmd_train")
+    trace_s = time.perf_counter() - t0
+    trace_alloc = (torch.cuda.memory_allocated() - before,
+                   torch.cuda.max_memory_allocated() - before)
+    params, opt_state, m = art(params, opt_state, batch0, 0)
+    first_loss = float(m["loss"].full_tensor())
+    expected = expected_train_launches(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rows = []
+    for step in range(1, TRAIN_STEPS + 1):
+        batch = pipe.get(step)
+        got = current_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt_state, m = art(params, opt_state, batch, step)
+        loss = float(m["loss"].full_tensor())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        after = current_launches()
+        rows.append({"step": step, "loss": loss,
+                     "grad_norm": float(m["grad_norm"].full_tensor()), "ms": ms,
+                     "launches": {k: after[k] - got[k] for k in after}})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plain = train["steps"]
+    diffs = [abs(first_loss - train["first_loss"]) / abs(train["first_loss"])]
+    for r, p in zip(rows, plain):
+        for k in ("loss", "grad_norm"):
+            diffs.append(abs(r[k] - p[k]) / max(abs(p[k]), 1e-30))
+    mem = art.memory()
+    cost = art.cost()
+    fl = step_flops(cfg, ShapeConfig("spmd_train", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    mean_ms = statistics.mean(r["ms"] for r in rows)
+    colls = art.collectives()
+    emit({"phase": "spmd_train", "arch": cfg.name, "num_layers": cfg.num_layers,
+          "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+          "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "trace_s": trace_s,
+          "trace_device_bytes_allocated_and_peak": list(trace_alloc),
+          "trace_ops": art.recorder.ops,
+          "first_step_loss": first_loss, "plain_first_step_loss": train["first_loss"],
+          "steps": rows, "plain_steps": [{k: p[k] for k in ("step", "loss", "grad_norm",
+                                                             "ms")} for p in plain],
+          "max_rel_diff": max(diffs), "tolerance": SPMD_TOL,
+          "mean_step_ms": mean_ms, "plain_mean_step_ms": train["mean_step_ms"],
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3,
+          "predicted_memory": dataclasses.asdict(mem),
+          "predicted_live_gb": (mem.argument_size_in_bytes + mem.temp_size_in_bytes
+                                + mem.output_size_in_bytes
+                                - mem.alias_size_in_bytes) / 1e9,
+          "peak_memory_gb": peak_gb, "plain_peak_memory_gb": train["peak_memory_gb"],
+          "traced_flops": cost["flops_per_device"],
+          "traced_bytes": cost["bytes_per_device"],
+          "analytic_total_flops": fl.total, "model_flops": fl.model_flops,
+          "mfu": fl.model_flops / (mean_ms / 1e3 * PEAK_FLOPS_BF16),
+          "plain_mfu": fl.model_flops / (train["mean_step_ms"] / 1e3 * PEAK_FLOPS_BF16),
+          "collectives": {k: n for k, (n, _b) in colls.by_kind().items()},
+          "expected_launches_per_step": expected})
+    if max(diffs) > SPMD_TOL:
+        raise SystemExit(f"spmd_train: loss or grad norm {max(diffs)} (relative) from "
+                         f"the unsharded step")
+    for r in rows:
+        if r["launches"] != expected:
+            raise SystemExit(f"spmd_train step {r['step']}: launches {r['launches']} "
+                             f"!= expected {expected}")
+    if trace_alloc[0] or art.recorder.real_inputs:
+        raise SystemExit(f"spmd_train: the fake trace left {trace_alloc[0]} bytes on "
+                         f"the card; ops on real tensors: {art.recorder.real_inputs[:5]}")
+    del params, opt_state, art, m, batch0
+    torch.cuda.empty_cache()
+    return {"mean_step_ms": mean_ms}
+
+
+def serve_engine(cfg, params, reqs, max_seq: int, slots: int, rules=None) -> dict:
+    """One engine over ``reqs`` with the serve phases' submission pattern
+    (half, 3 ticks, the rest): completions by rid, ticks, decode ms a tick
+    and the kernels' launches."""
+    engine = ServingEngine(cfg, params, max_slots=slots, max_seq=max_seq,
+                           tp=1, rules=rules)
+    warm = [Request(rid=-1, prompt=list(range(1, 65)), max_new_tokens=2)]
+    for r in warm:  # cuBLAS handles, DTensor's sharding caches
+        engine.submit(r)
+    engine.run_until_drained()
+    engine.completions.clear()
+    engine.timing = type(engine.timing)()
+    torch.cuda.synchronize()
+    reset_launches()
+    ticks = 0
+    t0 = time.perf_counter()
+    half = len(reqs) // 2
+    for r in reqs[:half]:
+        engine.submit(r)
+    for _ in range(3):
+        ticks += engine.step() > 0
+    for r in reqs[half:]:
+        engine.submit(r)
+    while engine.queue or (engine.slot_rid >= 0).any():
+        ticks += engine.step() > 0
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    done = engine.shutdown()
+    launches = {name: module.LAUNCHES for name, module in KERNELS.items()}
+    return {"tokens": {c.rid: c.tokens for c in done}, "ticks": ticks,
+            "wall_s": wall_s, "prefills": len(done),
+            "tokens_per_s": sum(len(c.tokens) - c.prompt_len for c in done) / wall_s,
+            "decode_ms_per_tick": engine.timing.node("host").run_ms / ticks,
+            "launches": launches}
+
+
+def spmd_serve(mesh) -> None:
+    """yi-9b through ``ServingEngine(tp=1, rules=decode_rules(mesh))`` and
+    through the engine without rules, on the same weights and requests:
+    the tokens must be equal, the ticks are printed side by side.  First a
+    depth cut in float32 whose sharded completions equal offline greedy
+    decode."""
+    rules = decode_rules(mesh)
+    # the float32 check: engine with rules == offline greedy, launches exact
+    cfg = cut(YI, YI_CHECK_LAYERS)
+    specs = lm.lm_param_specs(cfg)
+    plain = init_params(specs, 0, "cuda", torch.float32)
+    randomize_small_params(plain, torch.Generator("cuda").manual_seed(2))
+    reqs = make_requests(np.random.default_rng(0), CHECK_REQUESTS, YI_CHECK_PROMPT,
+                         CHECK_NEW, cfg.vocab_size)
+    got = serve_engine(cfg, placed(specs, plain, rules), reqs, YI_CHECK_MAX_SEQ,
+                       SERVE_SLOTS, rules)
+    mismatched = [r.rid for r in reqs if got["tokens"][r.rid][len(r.prompt):]
+                  != offline_greedy(cfg, plain, r.prompt, CHECK_NEW, YI_CHECK_MAX_SEQ)]
+    expected = expected_launches(cfg, got["prefills"], got["ticks"])
+    emit({"phase": "spmd_serve_check", "arch": YI, "num_layers": cfg.num_layers,
+          "compute_dtype": cfg.compute_dtype, "requests": len(reqs),
+          "mismatched_rids": mismatched, "launches": got["launches"],
+          "expected_launches": expected})
+    if mismatched or got["launches"] != expected:
+        raise SystemExit(f"spmd_serve_check: sharded engine != offline greedy for "
+                         f"{mismatched}, or launches {got['launches']} != {expected}")
+    del plain, got
+    torch.cuda.empty_cache()
+
+    cfg = get_config(YI)
+    specs = lm.lm_param_specs(cfg)
+    params = init_params(specs, 0, "cuda", torch.bfloat16, rules=rules)
+    reqs = make_requests(np.random.default_rng(0), SERVE_REQUESTS, YI_SERVE_PROMPT,
+                         SERVE_NEW, cfg.vocab_size)
+    runs = {}
+    for name, p, r in (("plain", local_tree(params), None), ("sharded", params, rules),
+                       ("plain_again", local_tree(params), None)):
+        runs[name] = serve_engine(cfg, p, reqs, YI_SERVE_MAX_SEQ, SERVE_SLOTS, r)
+    same = all(runs[n]["tokens"] == runs["plain"]["tokens"] for n in runs)
+    expected = expected_launches(cfg, runs["sharded"]["prefills"],
+                                 runs["sharded"]["ticks"])
+    emit({"phase": "spmd_serve", "arch": YI, "num_layers": cfg.num_layers,
+          "weights_dtype": "bfloat16", "requests": len(reqs),
+          "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+          **{f"{n}_{k}": v[k] for n, v in runs.items()
+             for k in ("decode_ms_per_tick", "tokens_per_s", "wall_s", "ticks")},
+          "tokens_equal": same, "sharded_launches": runs["sharded"]["launches"],
+          "expected_launches": expected})
+    if not same:
+        raise SystemExit("spmd_serve: the sharded engine's tokens differ from the plain one's")
+    if runs["sharded"]["launches"] != expected:
+        raise SystemExit(f"spmd_serve: launches {runs['sharded']['launches']} != {expected}")
+    del params, runs
+    torch.cuda.empty_cache()
+
+
+def greedy(cfg, params, prompt, n: int, max_seq: int, tp: int):
+    """(last prompt logits [Vp], ``n`` greedy tokens) at degree ``tp``."""
+    logits, cache = lm.prefill(cfg, params, torch.tensor([prompt], device="cuda"),
+                               max_seq, tp=tp)
+    first = logits[0, 0]
+    out = [int(torch.argmax(first[: cfg.vocab_size]))]
+    for i in range(n - 1):
+        lg, cache = lm.decode_step(cfg, params, cache,
+                                   torch.tensor([[out[-1]]], device="cuda"),
+                                   len(prompt) + i, tp=tp)
+        out.append(int(torch.argmax(lg[0, 0, : cfg.vocab_size])))
+    return first, out
+
+
+def tp_plan() -> None:
+    """The padded plans at tp = 16 on one card, full width, float32, cut in
+    depth: phi3-medium-14b (grouped: 40 / 10 heads padded to 48 / 12) and
+    llama4-maverick, one period (expand_kv: 48 query heads over 8 KV
+    heads).  The tp = 16 parameters are the tp = 1 ones carried by
+    ``convert.pad_for_tp`` (a leaf it does not widen is shared).  Logits
+    within TP_TOL of tp = 1's, the greedy tokens equal, every flash launch
+    at tp = 16 at 48 query heads through the float32 variant."""
+    seen = []
+    kernel_fn = flash_ops.flash_attention_cuda
+
+    def recording(q, k, v, **kw):
+        seen.append((q.shape[1], k.shape[1], str(q.dtype)))
+        return kernel_fn(q, k, v, **kw)
+
+    for arch, layers in ((PHI3, 2), (MAVERICK, MAVERICK_LAYERS)):
+        cfg = cut(arch, layers)
+        plan = lm.head_plan(cfg, TP_PLAN)
+        torch.cuda.reset_peak_memory_stats()
+        p1 = init_params(lm.lm_param_specs(cfg), 0, "cuda", torch.float32)
+        randomize_small_params(p1, torch.Generator("cuda").manual_seed(4))
+        p16 = pad_for_tp(cfg, p1, TP_PLAN)
+        prompt = np.random.default_rng(5).integers(
+            0, cfg.vocab_size, TP_PLAN_PROMPT).tolist()
+        l1, t1 = greedy(cfg, p1, prompt, TP_PLAN_NEW, TP_PLAN_MAX_SEQ, 1)
+        seen.clear()
+        flash_ops.flash_attention_cuda = recording
+        try:
+            l16, t16 = greedy(cfg, p16, prompt, TP_PLAN_NEW, TP_PLAN_MAX_SEQ, TP_PLAN)
+        finally:
+            flash_ops.flash_attention_cuda = kernel_fn
+        err = float((l1[: cfg.vocab_size] - l16[: cfg.vocab_size]).abs().max())
+        want = [(plan["Hp"], plan["Hp"] if plan["mode"] == "expand_kv" else plan["Kp"],
+                 "torch.float32")] * sum(
+            n for kind, n in cfg.layer_counts().items() if kind in lm.ATTN_KINDS)
+        emit({"phase": "tp_plan", "arch": arch, "num_layers": cfg.num_layers,
+              "tp": TP_PLAN, "plan": plan, "heads": [cfg.num_heads, cfg.num_kv_heads],
+              "vocab": [cfg.vocab_size, cfg.padded_vocab(TP_PLAN)],
+              "prompt": len(prompt), "max_abs_logit_diff": err, "tolerance": TP_TOL,
+              "tokens_tp1": t1, "tokens_tp16": t16,
+              "flash_launches_tp16": seen, "peak_memory_gb":
+                  torch.cuda.max_memory_allocated() / 1e9})
+        if err > TP_TOL or t1 != t16:
+            raise SystemExit(f"tp_plan {arch}: logits {err} > {TP_TOL} or tokens differ")
+        if seen != want:
+            raise SystemExit(f"tp_plan {arch}: flash launches {seen} != {want}")
+        del p1, p16, l1, l16
+        torch.cuda.empty_cache()
+
+
+def dryrun_phase() -> None:
+    """``python -m repro_torch.launch.dryrun`` on the 16 x 16 fake mesh for
+    yi-9b's decode_32k and train_4k, and ``launch.roofline`` for
+    decode_32k, each a process of its own on the card's host (one fake
+    process group of 256 ranks each): the device memory allocated after the
+    trace must be what it was before (the peak is printed), and the
+    per-device GiB, the collectives by kind and the FLOPs are printed."""
+    out = Path(tempfile.mkdtemp(prefix="dryrun_", dir=Path(__file__).parent / "build"))
+    env = _child_env()
+    for shape in ("decode_32k", "train_4k"):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                        YI, "--shape", shape, "--out", str(out / "dryrun")],
+                       check=True, env=env, timeout=DRYRUN_TIMEOUT_S)
+        r = json.loads((out / "dryrun" / f"{YI}__{shape}__single.json").read_text())
+        mem = r["memory"]
+        emit({"phase": "dryrun", "arch": YI, "shape": shape, "mesh": r["mesh"],
+              "command_s": time.perf_counter() - t0, "trace_s": r["load_compile_s"],
+              "gib_per_device": mem["live_bytes_per_device"] / 2**30,
+              "hbm_gib": mem["live_bytes_per_device"] / mem["hbm_fraction"] / 2**30
+              if mem["hbm_fraction"] else None,
+              "memory": mem, "collectives": r["collectives"],
+              "flops_per_device": r["cost_analysis"]["flops_per_device"],
+              "bytes_per_device": r["cost_analysis"]["bytes_per_device"],
+              "model_flops_global": r["model_flops_global"],
+              "device_bytes_before_after_peak": r["device_bytes_before_after_peak"]})
+        before, after, _peak = r["device_bytes_before_after_peak"]
+        if not r["ok"] or before != after:
+            raise SystemExit(f"dryrun {shape}: {r}")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "repro_torch.launch.roofline", "--arch", YI,
+                    "--shape", "decode_32k", "--out", str(out / "roofline")],
+                   check=True, env=env, timeout=DRYRUN_TIMEOUT_S)
+    r = json.loads((out / "roofline" / f"{YI}__decode_32k.json").read_text())
+    emit({"phase": "roofline", "arch": YI, "shape": "decode_32k",
+          "command_s": time.perf_counter() - t0, **{k: r[k] for k in (
+              "terms_seconds", "dominant", "useful_ratio", "roofline_fraction",
+              "collectives_by_kind", "per_device")}})
+    if not r["ok"]:
+        raise SystemExit(f"roofline: {r}")
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def spmd_phases(train: dict) -> None:
+    """Part 6, each phase's launches counted from zero where it checks them."""
+    mesh = make_smoke_mesh(1, 1, "cuda")
+    spmd_train(mesh, train)
+    spmd_serve(mesh)
+    tp_plan()
+    dryrun_phase()
+    torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -23,6 +23,13 @@ writes the same raw bits, records every leaf's dtype in the manifest
 (``dtypes``), and rebuilds a bfloat16 tensor from the bits on restore; a
 ``|V2`` leaf of a checkpoint without ``dtypes`` (one the JAX package
 wrote) can only be bfloat16, its one 2-byte type numpy does not know.
+
+A DTensor leaf is saved whole (``full_tensor()``, a collective every rank
+of its mesh takes part in).  Where several ranks save the same state, one
+of them writes (``writer``) and the others' ``wait`` waits for its file.
+``restore(shardings=...)`` places each leaf onto the given ``(mesh,
+placements)``: every rank reads the whole leaf and keeps its own shard,
+so a checkpoint restores onto any mesh (the elastic re-mesh).
 """
 
 from __future__ import annotations
@@ -40,8 +47,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels._shard import place, whole
 
 RAW_BF16 = np.dtype("V2")
+WRITER_WAIT_S = 600.0  # how long a non-writer waits for the writer's file
 
 
 def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
@@ -97,29 +106,40 @@ def _from_host(arr: np.ndarray, dtype: str | None) -> torch.Tensor:
 class CheckpointManager:
     directory: str
     keep: int = 3
+    # whether this process writes; a rank that does not waits for the
+    # writer's file of each step it saved (``wait``)
+    writer: bool = True
 
     def __post_init__(self) -> None:
         os.makedirs(self.directory, exist_ok=True)
         self._pending: threading.Thread | None = None
         self._last_error: Exception | None = None
+        self._expected: int | None = None
 
     # -- save ---------------------------------------------------------------
 
     def save(self, step: int, state: dict, meta: dict | None = None) -> str:
         """Blocking save of a tree of tensors (or arrays) ``state``."""
-        flat = _flatten(state)
+        flat = {k: whole(v) for k, v in _flatten(state).items()}
         dtypes = {k: _dtype_name(torch.as_tensor(v)) for k, v in flat.items()}
         host_flat = {k: _to_host(v, copy=False) for k, v in flat.items()}
+        if not self.writer:
+            self._expected = step
+            self.wait()
+            return os.path.join(self.directory, f"step_{step:08d}")
         return self._write(step, host_flat, dtypes, meta or {})
 
     def save_async(self, step: int, state: dict, meta: dict | None = None) -> None:
         """Non-blocking save: the copy to the host now, file IO in the
         background."""
         self.wait()  # one in-flight save at a time (bounded memory)
-        flat = _flatten(state)
+        flat = {k: whole(v) for k, v in _flatten(state).items()}
         dtypes = {k: _dtype_name(torch.as_tensor(v)) for k, v in flat.items()}
         host_flat = {k: _to_host(v, copy=True) for k, v in flat.items()}
         meta = dict(meta or {})
+        if not self.writer:
+            self._expected = step
+            return
 
         def work() -> None:
             try:
@@ -131,9 +151,20 @@ class CheckpointManager:
         self._pending.start()
 
     def wait(self) -> None:
+        """Wait for the save in flight (a non-writer: for the writer's
+        file of the last step it saved)."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._expected is not None:
+            manifest = os.path.join(self.directory, f"step_{self._expected:08d}",
+                                    "manifest.json")
+            deadline = time.monotonic() + WRITER_WAIT_S
+            while not os.path.exists(manifest):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"no checkpoint {manifest} from the writer")
+                time.sleep(0.01)
+            self._expected = None
         if self._last_error is not None:
             err, self._last_error = self._last_error, None
             raise err
@@ -187,9 +218,12 @@ class CheckpointManager:
         step: int | None = None,
         device=None,
         expect_meta: dict | None = None,
+        shardings: Any = None,
     ) -> tuple[int, dict, dict]:
         """Load (step, state, manifest), the state's tensors on ``device``
-        (default: the card), each in the dtype it was saved in."""
+        (default: the card), each in the dtype it was saved in.
+        ``shardings``: a tree like the state's with ``(mesh, placements)``
+        (or None) leaves; each such leaf comes back a DTensor so placed."""
         dev = resolve_device(device)
         if step is None:
             step = self.latest_step()
@@ -207,4 +241,8 @@ class CheckpointManager:
         dtypes = manifest.get("dtypes", {})
         with np.load(os.path.join(path, "arrays.npz")) as z:
             flat = {k: _from_host(z[k], dtypes.get(k)).to(dev) for k in z.files}
+        if shardings is not None:
+            placed = _flatten(shardings)
+            flat = {k: v if placed.get(k) is None else place(v, *placed[k])
+                    for k, v in flat.items()}
         return step, _unflatten(flat), manifest

@@ -11,18 +11,28 @@ with no user intervention:
   barriers, timing return);
 * the **wired process network** — for emit/cluster/collect applications, a
   runnable network (``runtime.local``) whose topology is exactly Figure 2 and
-  whose protocol is the one model-checked by ``core.verify``.
+  whose protocol is the one model-checked by ``core.verify``, on the
+  ``"threads"``, ``"cluster"`` or ``"service"`` backend;
+* the **SPMD step** — for cluster stages that are PyTorch step functions
+  over DTensors placed by ``core.channels``: ``build_step`` traces the step
+  once on the builder's mesh with fake tensors (no allocation, no launch)
+  and returns a :class:`StepArtifact` whose cost, memory, program text and
+  collectives come from that trace, and which runs the step eagerly on
+  real tensors; ``serialize`` exports it (``torch.export``) so one host
+  traces and every node loads it (the analogue of JCSP code-loading
+  channels, paper §4.1).
 
-This is the application half of the JAX package's builder, with its
-``"threads"``, ``"cluster"`` and ``"service"`` backends.  Its SPMD half
-(``build_step``) is not ported yet.
+Load time (the trace) and run time are accounted separately (requirement 7).
 """
 
 from __future__ import annotations
 
+import io
+import time
 from dataclasses import dataclass, field
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
+from repro_torch.core import hlo as hlo_mod
 from repro_torch.core.timing import TimingCollector
 
 
@@ -34,6 +44,41 @@ APP_PORT = 3000  # application network runs on a different port (§6.1).
 # ---------------------------------------------------------------------------
 # Deployment plan (HNL / NL analogue).
 # ---------------------------------------------------------------------------
+
+
+def _fake_mode_of(args):
+    """The ``FakeTensorMode`` of the first fake tensor among ``args``."""
+    for t in _leaves(args):
+        local = _local(t)
+        mode = getattr(local, "fake_mode", None)
+        if mode is not None:
+            return mode
+    return None
+
+
+def _to_fake(mode, tree):
+    """``tree`` with every real tensor (or DTensor's local shard) replaced
+    by a fake one of ``mode``; fake ones pass as they are."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _to_fake(mode, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_fake(mode, v) for v in tree)
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    if hasattr(tree, "to_local"):
+        from torch.distributed.tensor import DTensor
+
+        local = tree.to_local()
+        if getattr(local, "fake_mode", None) is mode:
+            return tree
+        return DTensor.from_local(mode.from_tensor(local), tree.device_mesh,
+                                  tree.placements, run_check=False,
+                                  shape=tree.shape, stride=tree.stride())
+    if getattr(tree, "fake_mode", None) is mode:
+        return tree
+    return mode.from_tensor(tree)
 
 
 @dataclass
@@ -121,15 +166,183 @@ class DeploymentPlan:
 
 
 # ---------------------------------------------------------------------------
+# Traced SPMD step.
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MemoryAnalysis:
+    """Per-device bytes, the four fields of XLA's ``memory_analysis()``:
+    the inputs, the peak of the step's own live storage less its outputs
+    (temp), its outputs, and the outputs that are inputs updated in place
+    (alias)."""
+
+    argument_size_in_bytes: int
+    output_size_in_bytes: int
+    temp_size_in_bytes: int
+    alias_size_in_bytes: int
+
+
+def _leaves(tree) -> list:
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return []
+
+
+def _local(t):
+    """A tensor's per-device part: a DTensor's local shard."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _unique(tensors) -> list:
+    """Each tensor (a DTensor counts as one) once, by identity."""
+    seen: dict[int, Any] = {}
+    for t in tensors:
+        seen.setdefault(id(t), t)
+    return list(seen.values())
+
+
+def _bytes(t) -> int:
+    """A tensor's per-device bytes: a DTensor's local shard's."""
+    local = _local(t)
+    return local.numel() * local.element_size()
+
+
+@dataclass
+class StepArtifact:
+    """A traced SPMD step with analysis accessors; calling it runs ``fn``
+    eagerly."""
+
+    name: str
+    fn: Callable
+    mesh: Any
+    load_ms: float
+    recorder: hlo_mod.TraceRecorder
+    memory_analysis: MemoryAnalysis
+    example_args: tuple = ()
+
+    def __call__(self, *args, **kw):
+        return self.fn(*args, **kw)
+
+    # -- analysis -----------------------------------------------------------
+
+    def cost(self) -> dict[str, float]:
+        """Per-device FLOPs (``torch.utils.flop_counter``'s formulas on
+        every local op) and bytes accessed (each op's inputs read and
+        outputs written).  Eager tracing runs every layer and loop step,
+        so these are totals (XLA counts a ``while`` body once)."""
+        return {
+            "flops_per_device": float(self.recorder.flops),
+            "bytes_per_device": float(self.recorder.bytes_accessed),
+        }
+
+    def memory(self) -> MemoryAnalysis:
+        return self.memory_analysis
+
+    def hlo_text(self) -> str:
+        """The traced program, one local op a line in HLO's syntax."""
+        return self.recorder.hlo_text()
+
+    def collectives(self) -> hlo_mod.CollectiveSummary:
+        return hlo_mod.parse_collectives(self.hlo_text())
+
+    # -- executable broadcast (code-loading channel analogue) ----------------
+
+    def serialize(self) -> bytes:
+        """The step exported (``torch.export``) against its example
+        arguments, as bytes."""
+        import torch
+
+        fn = self.fn
+
+        class _Step(torch.nn.Module):
+            def forward(self, *args):
+                return fn(*args)
+
+        buf = io.BytesIO()
+        torch.export.save(torch.export.export(_Step(), tuple(self.example_args)),
+                          buf)
+        return buf.getvalue()
+
+
+# ---------------------------------------------------------------------------
 # The builder.
 # ---------------------------------------------------------------------------
 
 
 class ClusterBuilder:
-    """Builds deployments from specifications."""
+    """Builds deployments from specifications.
 
-    def __init__(self, timing: TimingCollector | None = None):
+    One builder is bound to one mesh (one "cluster"); building the same
+    spec with another builder re-deploys it on other hardware with no
+    change by the user (paper requirement 4, §6.1)."""
+
+    def __init__(self, mesh=None, rules=None,
+                 timing: TimingCollector | None = None):
+        self.mesh = mesh
+        self.rules = rules
         self.timing = timing or TimingCollector()
+
+    # -- SPMD step path ------------------------------------------------------
+
+    def build_step(self, fn: Callable, example_args: Sequence[Any], *,
+                   name: str = "step") -> StepArtifact:
+        """Trace ``fn`` once on ``example_args`` and return its artifact.
+
+        ``example_args`` may be real tensors or fake DTensors made by
+        ``ShardingRules.struct`` / the ``*_structs`` helpers (the
+        dry-run): placements travel with them, so the user supplies none.
+        The trace runs under ``FakeTensorMode`` (real arguments are
+        converted to fake ones, so nothing is allocated or launched and
+        the arguments are not changed) with ``hlo.TraceRecorder`` on.  An
+        output that is an input (updated in place, as a train step's
+        parameters and moments are) counts as alias bytes: eager PyTorch
+        aliases them without the JAX package's ``donate_argnums``.  It is
+        timed into the builder's ``TimingCollector`` as host ``load``.
+        """
+        from repro_torch.core.channels import fake_mode
+
+        t0 = time.perf_counter()
+        args = tuple(example_args)
+        recorder = hlo_mod.TraceRecorder()
+        mode = _fake_mode_of(args) or fake_mode()
+        # converted outside the mode: under it, a real DTensor's
+        # to_local() would already come back fake
+        fake_args = _to_fake(mode, args)
+        recorder.fake_only = True
+        with mode:
+            ins = _unique(_leaves(fake_args))
+            with recorder:
+                out = fn(*fake_args)
+            outs = _unique(_leaves(out))
+            in_ids = {id(t) for t in ins}
+            alias = sum(_bytes(t) for t in outs if id(t) in in_ids)
+            created = sum(_bytes(t) for t in outs if id(t) not in in_ids)
+            memory = MemoryAnalysis(
+                argument_size_in_bytes=sum(map(_bytes, ins)),
+                output_size_in_bytes=sum(map(_bytes, outs)),
+                temp_size_in_bytes=max(recorder.peak_bytes - created, 0),
+                alias_size_in_bytes=alias,
+            )
+            del out, outs, ins, fake_args
+        load_ms = (time.perf_counter() - t0) * 1e3
+        self.timing.add("host", "load", load_ms)
+        return StepArtifact(name=name, fn=fn, mesh=self.mesh, load_ms=load_ms,
+                            recorder=recorder, memory_analysis=memory,
+                            example_args=args)
+
+    @staticmethod
+    def load_serialized_step(payload: bytes) -> Callable:
+        """Node side: load a step broadcast by the host (paper §4.1)."""
+        import torch
+
+        return torch.export.load(io.BytesIO(payload)).module()
 
     def deployment_plan(
         self,

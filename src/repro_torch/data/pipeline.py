@@ -4,9 +4,8 @@ The stream is the JAX package's, bit for bit:
 ``tokens[step] = Philox(key=seed + (step << 20))`` drawn by numpy, so every
 restart or resume reproduces it exactly (a checkpoint records only the
 step).  Batches are numpy on the host and tensors on the trainer's device;
-``DataPipeline`` builds the next one ahead of need (one-batch prefetch).
-Sharding a batch over a mesh (``shard_batch``) waits for the port's
-sharding work (ROADMAP item 9).
+``DataPipeline`` builds the next one ahead of need (one-batch prefetch).  With sharding rules a batch is a set of DTensors
+(``shard_batch``): each rank keeps its own rows of the global numpy batch.
 
 A real corpus plugs in by implementing :class:`BatchSource`.
 """
@@ -22,6 +21,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.processes import EmitDetails
 from repro_torch.device import resolve_device
+from repro_torch.kernels._shard import contiguous_stride
 
 
 class BatchSource(Protocol):
@@ -58,6 +58,43 @@ class SyntheticLM(BatchSource):
         return out
 
 
+BATCH_AXES: dict[str, tuple] = {
+    "tokens": ("batch", "seq"),
+    "targets": ("batch", "seq"),
+    "extra_embeds": ("batch", "seq", "d_model"),
+    "frames": ("batch", "seq", "d_model"),
+}
+
+
+def _tensor(arr: np.ndarray, device) -> torch.Tensor:
+    """Token ids as int64 (PyTorch's index type), the rest as they are."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    return (t.long() if t.dtype == torch.int32 else t).to(device)
+
+
+def shard_batch(batch: dict[str, np.ndarray], rules, device=None) -> dict:
+    """Global DTensors from the (host-local) numpy batch: each rank copies
+    only its own shard of each array to ``device`` (default: the rules'
+    mesh's device type)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    dev = device if device is not None else rules.mesh.device_type
+    out = {}
+    for name, arr in batch.items():
+        mesh, placements = rules.sharding(arr.shape, BATCH_AXES[name])
+        local_shape, offset = compute_local_shape_and_global_offset(
+            arr.shape, mesh, placements)
+        index = tuple(slice(o, o + n) for o, n in zip(offset, local_shape))
+        local = _tensor(arr[index], dev)
+        out[name] = DTensor.from_local(local, mesh, placements, run_check=False,
+                                       shape=torch.Size(arr.shape),
+                                       stride=contiguous_stride(arr.shape))
+    return out
+
+
 def source_for(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0) -> SyntheticLM:
     return SyntheticLM(
         vocab_size=cfg.vocab_size,
@@ -72,11 +109,13 @@ def source_for(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0) -> Synthetic
 
 class DataPipeline:
     """step -> batch of tensors on ``device`` (default: the card), with
-    one-batch prefetch."""
+    one-batch prefetch; with ``rules``, a batch of DTensors
+    (``shard_batch``)."""
 
-    def __init__(self, source: BatchSource, device=None):
+    def __init__(self, source: BatchSource, device=None, rules=None):
         self.source = source
         self.device = resolve_device(device)
+        self.rules = rules
         self._prefetched: tuple[int, Any] | None = None
 
     def get(self, step: int) -> dict:
@@ -91,12 +130,10 @@ class DataPipeline:
             self._prefetched = (step, self._materialise(step))
 
     def _materialise(self, step: int) -> dict:
-        """Token ids as int64 (PyTorch's index type), the rest as they are."""
-        out = {}
-        for name, arr in self.source.batch(step).items():
-            t = torch.from_numpy(np.ascontiguousarray(arr))
-            out[name] = (t.long() if t.dtype == torch.int32 else t).to(self.device)
-        return out
+        batch = self.source.batch(step)
+        if self.rules is not None:
+            return shard_batch(batch, self.rules, self.device)
+        return {name: _tensor(arr, self.device) for name, arr in batch.items()}
 
 
 def emit_details_for(source: BatchSource, num_steps: int) -> EmitDetails:

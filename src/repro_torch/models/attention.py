@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from repro_torch.kernels._shard import is_dtensor
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
 NEG_INF = -1e30
@@ -62,6 +63,17 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     B, _, H, D = q.shape
     Skv, KV = cache_k.shape[1], cache_k.shape[2]
     G = H // KV
+    if is_dtensor(q):
+        # the q heads are grouped by KV head: a head shard that is not a
+        # whole number of groups takes the (one-token) q whole
+        from torch.distributed.tensor import Replicate
+
+        sizes = q.device_mesh.shape
+        placements = tuple(
+            Replicate() if p.is_shard() and p.dim == 2 and KV % n else p
+            for p, n in zip(q.placements, sizes))
+        if placements != tuple(q.placements):
+            q = q.redistribute(q.device_mesh, placements)
     qg = q.reshape(B, KV, G, D)
     scores = torch.einsum("bkgd,bskd->bkgs", qg.float(),
                           cache_k.float()) / math.sqrt(D)

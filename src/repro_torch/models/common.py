@@ -1,9 +1,10 @@
 """Parameter plumbing: the JAX package's :class:`ParamSpec` trees.
 
 Models declare their parameters as trees of :class:`ParamSpec` (shape,
-logical axes, initializer), and ``init_params`` materialises one.  The
-logical axes are kept so that the trees equal the JAX package's; the port
-does not shard them yet.
+logical axes, initializer), and ``init_params`` materialises one; with
+sharding rules each leaf becomes a DTensor placed by its logical axes.
+``param_structs`` gives the same tree as fake DTensors (the dry-run's
+inputs) and ``param_shardings`` the ``(mesh, placements)`` of each leaf.
 """
 
 from __future__ import annotations
@@ -83,20 +84,50 @@ def _init_leaf(spec: ParamSpec, seed: int, path: str, device: torch.device,
 
 
 def init_params(spec_tree: Any, seed: int = 0, device=None,
-                dtype: torch.dtype = torch.float32) -> Any:
+                dtype: torch.dtype = torch.float32, rules=None) -> Any:
     """Materialise a parameter tree on ``device`` (default: the card).
 
     Each leaf is drawn in ``dtype`` from its own generator, seeded from
     ``seed`` and its path, so a full-width model is made leaf by leaf on the
     card and never as a whole float32 copy.  The numbers are not
     ``jax.random``'s: to compute what the JAX package computes, carry its
-    parameters across with ``models.convert.params_from_numpy``.
+    parameters across with ``models.convert.params_from_numpy``.  With
+    ``rules`` (``core.channels.ShardingRules``) each leaf is a DTensor
+    placed by its logical axes; every rank draws the same leaf and keeps
+    its shard.
     """
     dev = resolve_device(device)
 
     def build(tree: Any, prefix: str = "") -> Any:
         if isinstance(tree, ParamSpec):
-            return _init_leaf(tree, seed, prefix, dev, dtype)
+            leaf = _init_leaf(tree, seed, prefix, dev, dtype)
+            return leaf if rules is None else rules.distribute(
+                leaf, tree.logical_axes)
         return {k: build(v, f"{prefix}/{k}") for k, v in tree.items()}
+
+    return build(spec_tree)
+
+
+def param_structs(spec_tree: Any, rules, dtype: torch.dtype = torch.float32,
+                  mode=None) -> Any:
+    """The parameter tree as fake DTensors placed by ``rules``: the
+    dry-run's inputs (no allocation)."""
+    from repro_torch.core.channels import fake_struct
+
+    def build(tree: Any) -> Any:
+        if isinstance(tree, ParamSpec):
+            return fake_struct(rules, tree.shape, dtype, tree.logical_axes,
+                               mode=mode)
+        return {k: build(v) for k, v in tree.items()}
+
+    return build(spec_tree)
+
+
+def param_shardings(spec_tree: Any, rules) -> Any:
+    """``(mesh, placements)`` per leaf."""
+    def build(tree: Any) -> Any:
+        if isinstance(tree, ParamSpec):
+            return rules.sharding(tree.shape, tree.logical_axes)
+        return {k: build(v) for k, v in tree.items()}
 
     return build(spec_tree)

@@ -34,11 +34,23 @@ from repro_torch.models.layers import (
     rms_norm,
     swiglu,
 )
-from repro_torch.models.lm import _dtype, _remat, _unstack, head_plan
+from repro_torch.models.lm import (
+    _constrain,
+    _dtype,
+    _expand_kv,
+    _heads,
+    _remat,
+    _residual,
+    _seq_whole,
+    _unstack,
+    _write_kv,
+    head_plan,
+    spmd,
+)
 
 
-def _proj_specs(cfg: ModelConfig, n: int):
-    hp = head_plan(cfg, 1)
+def _proj_specs(cfg: ModelConfig, n: int, tp: int):
+    hp = head_plan(cfg, tp)
     D, hd = cfg.d_model, cfg.head_dim
     return {
         "wq": ParamSpec((n, D, hp["Hp"] * hd), ("layers", "d_model_fsdp", "d_attn"),
@@ -52,21 +64,21 @@ def _proj_specs(cfg: ModelConfig, n: int):
     }
 
 
-def encdec_param_specs(cfg: ModelConfig) -> dict:
+def encdec_param_specs(cfg: ModelConfig, tp: int = 1) -> dict:
     D = cfg.d_model
     ne, nd = cfg.encoder_layers, cfg.num_layers
-    Vp = cfg.padded_vocab(1)
+    Vp = cfg.padded_vocab(tp)
     enc_block = {
         "ln1": ParamSpec((ne, D), ("layers", "d_model"), init="zeros"),
-        "self": _proj_specs(cfg, ne),
+        "self": _proj_specs(cfg, ne, tp),
         "ln2": ParamSpec((ne, D), ("layers", "d_model"), init="zeros"),
         "mlp": mlp_specs(D, cfg.d_ff, ne),
     }
     dec_block = {
         "ln1": ParamSpec((nd, D), ("layers", "d_model"), init="zeros"),
-        "self": _proj_specs(cfg, nd),
+        "self": _proj_specs(cfg, nd, tp),
         "ln_x": ParamSpec((nd, D), ("layers", "d_model"), init="zeros"),
-        "cross": _proj_specs(cfg, nd),
+        "cross": _proj_specs(cfg, nd, tp),
         "ln2": ParamSpec((nd, D), ("layers", "d_model"), init="zeros"),
         "mlp": mlp_specs(D, cfg.d_ff, nd),
     }
@@ -81,8 +93,8 @@ def encdec_param_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def _mha(cfg, p, xq, xkv, positions_q, positions_kv, *, causal,
-         cache=None, cache_len=None, rope=True):
+def _mha(cfg, p, xq, xkv, positions_q, positions_kv, *, causal, tp=1,
+         rules=None, cache=None, cache_len=None, rope=True):
     """Attention for the encoder and the decoder, optionally against a cache.
 
     ``cache`` with ``k_static`` (cross-attention decode): the encoder's K/V,
@@ -90,62 +102,77 @@ def _mha(cfg, p, xq, xkv, positions_q, positions_kv, *, causal,
     decode): the new token's K/V are written into these views at
     ``cache_len`` (an int) in place.  Returns (out [B, Sq, H * hd], state).
     """
-    hp = head_plan(cfg, 1)
+    hp = head_plan(cfg, tp)
     H, KV, hd = hp["Hp"], hp["Kp"], cfg.head_dim
     B, Sq, _ = xq.shape
     cdt = _dtype(cfg.compute_dtype)
-    q = (xq @ p["wq"].to(cdt)).reshape(B, Sq, H, hd)
+    q = _heads(rules, xq @ p["wq"].to(cdt), H, hd)
     if rope:
         q = attn_mod.apply_rope(q, positions_q, cfg.rope_theta)
     if cache is not None and "k_static" in cache:  # cross-attention decode
         out = attn_mod.decode_attention(q, cache["k_static"], cache["v_static"],
                                         cache["k_static"].shape[1])
         return out.reshape(B, Sq, H * hd), None
-    k = (xkv @ p["wk"].to(cdt)).reshape(B, -1, KV, hd)
-    v = (xkv @ p["wv"].to(cdt)).reshape(B, -1, KV, hd)
+    k = _heads(rules, xkv @ p["wk"].to(cdt), KV, hd)
+    v = _heads(rules, xkv @ p["wv"].to(cdt), KV, hd)
     if rope:
         k = attn_mod.apply_rope(k, positions_kv, cfg.rope_theta)
     if cache is not None:  # self-attention decode
-        ck, cv = cache["k"], cache["v"]
-        ck[:, cache_len:cache_len + Sq] = k.to(ck.dtype)
-        cv[:, cache_len:cache_len + Sq] = v.to(cv.dtype)
+        ck = _write_kv(cache["k"], k, cache_len, cache_len)
+        cv = _write_kv(cache["v"], v, cache_len, cache_len)
         out = attn_mod.decode_attention(q, ck, cv, cache_len + Sq)
-        return out.reshape(B, Sq, H * hd), cache
-    out = attn_mod.attention(q, k, v, causal=causal)
+        return out.reshape(B, Sq, H * hd), {"k": ck, "v": cv}
+    k_att, v_att = _expand_kv(cfg, hp, k, v, rules)
+    out = attn_mod.attention(q, k_att, v_att, causal=causal)
     return out.reshape(B, Sq, H * hd), {"k": k, "v": v}
 
 
-def _enc_block(cfg, p, x, positions):
+def _norm(cfg, rules, x, scale):
+    return _seq_whole(rules, rms_norm(x, scale, cfg.norm_eps))
+
+
+def _out(cdt, rules, x, a, w):
+    """The residual plus an attention output's projection."""
+    return x + _residual(rules, a @ w.to(cdt)).to(x.dtype)
+
+
+def _mlp(cfg, cdt, rules, x, p):
+    h = _norm(cfg, rules, x, p["ln2"])
+    out = swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"], cdt)
+    x = x + _residual(rules, out).to(x.dtype)
+    return _constrain(rules, x, ("batch", "seq_sp", "d_model"))
+
+
+def _enc_block(cfg, p, x, positions, tp=1, rules=None):
     cdt = _dtype(cfg.compute_dtype)
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, _ = _mha(cfg, p["self"], h, h, positions, positions, causal=False)
-    x = x + (a @ p["self"]["wo"].to(cdt)).to(x.dtype)
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"],
-                      cdt).to(x.dtype)
+    h = _norm(cfg, rules, x, p["ln1"])
+    a, _ = _mha(cfg, p["self"], h, h, positions, positions, causal=False,
+                tp=tp, rules=rules)
+    x = _out(cdt, rules, x, a, p["self"]["wo"])
+    return _mlp(cfg, cdt, rules, x, p)
 
 
-def _dec_block(cfg, p, x, enc_out, pos_q, pos_enc, cache=None, cache_len=None):
+def _dec_block(cfg, p, x, enc_out, pos_q, pos_enc, tp=1, rules=None,
+               cache=None, cache_len=None):
     """One decoder block; with ``cache`` ({"k", "v", "xk", "xv"} views of
-    one layer) a decode step against it."""
+    one layer) a decode step against it.  Returns (x, the self-attention
+    K/V it wrote)."""
     cdt = _dtype(cfg.compute_dtype)
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = _norm(cfg, rules, x, p["ln1"])
     self_cache = None if cache is None else {"k": cache["k"], "v": cache["v"]}
-    a, _kv = _mha(cfg, p["self"], h, h, pos_q, pos_q, causal=True,
-                  cache=self_cache, cache_len=cache_len)
-    x = x + (a @ p["self"]["wo"].to(cdt)).to(x.dtype)
-    h = rms_norm(x, p["ln_x"], cfg.norm_eps)
+    a, kv = _mha(cfg, p["self"], h, h, pos_q, pos_q, causal=True, tp=tp,
+                 rules=rules, cache=self_cache, cache_len=cache_len)
+    x = _out(cdt, rules, x, a, p["self"]["wo"])
+    h = _norm(cfg, rules, x, p["ln_x"])
     if cache is not None:
         xc = {"k_static": cache["xk"], "v_static": cache["xv"]}
         a, _ = _mha(cfg, p["cross"], h, None, pos_q, None, causal=False,
-                    cache=xc, rope=False)
+                    tp=tp, rules=rules, cache=xc, rope=False)
     else:
         a, _ = _mha(cfg, p["cross"], h, enc_out, pos_q, pos_enc, causal=False,
-                    rope=False)
-    x = x + (a @ p["cross"]["wo"].to(cdt)).to(x.dtype)
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"],
-                      cdt).to(x.dtype)
+                    tp=tp, rules=rules, rope=False)
+    x = _out(cdt, rules, x, a, p["cross"]["wo"])
+    return _mlp(cfg, cdt, rules, x, p), kv
 
 
 def _run_blocks(cfg, params, blocks, n, x, block):
@@ -157,13 +184,17 @@ def _run_blocks(cfg, params, blocks, n, x, block):
     return x
 
 
-def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
+def encode(cfg: ModelConfig, params, frames: torch.Tensor, *, tp: int = 1,
+           rules=None) -> torch.Tensor:
     """frames: [B, S_enc, D] stub embeddings -> encoder output."""
-    x = frames.to(_dtype(cfg.compute_dtype))
-    positions = torch.arange(x.shape[1], device=x.device)
-    x = _run_blocks(cfg, params, params["encoder"]["blocks"], cfg.encoder_layers, x,
-                    lambda x, p: _enc_block(cfg, p, x, positions))
-    return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+    with spmd(rules):
+        x = frames.to(_dtype(cfg.compute_dtype))
+        x = _constrain(rules, x, ("batch", "seq_sp", "d_model"))
+        positions = torch.arange(x.shape[1], device=x.device)
+        x = _run_blocks(cfg, params, params["encoder"]["blocks"],
+                        cfg.encoder_layers, x,
+                        lambda x, p: _enc_block(cfg, p, x, positions, tp, rules))
+        return _norm(cfg, rules, x, params["encoder"]["final_norm"])
 
 
 def _embed(cfg, params, tokens):
@@ -172,32 +203,39 @@ def _embed(cfg, params, tokens):
 
 
 def decode_train(cfg: ModelConfig, params, tokens: torch.Tensor,
-                 enc_out: torch.Tensor) -> torch.Tensor:
+                 enc_out: torch.Tensor, *, tp: int = 1,
+                 rules=None) -> torch.Tensor:
     """The decoder over a whole target sequence: final hidden states."""
-    x = _embed(cfg, params, tokens)
-    pos_q = torch.arange(tokens.shape[1], device=tokens.device)
-    pos_enc = torch.arange(enc_out.shape[1], device=tokens.device)
-    x = _run_blocks(cfg, params, params["decoder"]["blocks"], cfg.num_layers, x,
-                    lambda x, p: _dec_block(cfg, p, x, enc_out, pos_q, pos_enc))
-    return rms_norm(x, params["decoder"]["final_norm"], cfg.norm_eps)
+    with spmd(rules):
+        x = _embed(cfg, params, tokens)
+        x = _constrain(rules, x, ("batch", "seq_sp", "d_model"))
+        pos_q = torch.arange(tokens.shape[1], device=tokens.device)
+        pos_enc = torch.arange(enc_out.shape[1], device=tokens.device)
+        x = _run_blocks(
+            cfg, params, params["decoder"]["blocks"], cfg.num_layers, x,
+            lambda x, p: _dec_block(cfg, p, x, enc_out, pos_q, pos_enc, tp,
+                                    rules)[0])
+        return _norm(cfg, rules, x, params["decoder"]["final_norm"])
 
 
-def encdec_loss(cfg: ModelConfig, params, batch):
+def encdec_loss(cfg: ModelConfig, params, batch, *, tp: int = 1, rules=None):
     """batch: frames [B, S_enc, D], tokens/targets [B, S_dec]."""
-    enc_out = encode(cfg, params, batch["frames"])
-    x = decode_train(cfg, params, batch["tokens"], enc_out)
-    ce = chunked_cross_entropy(
-        x, params["lm_head"], batch["targets"],
-        vocab_size=cfg.vocab_size, seq_chunk=cfg.loss_seq_chunk,
-        compute_dtype=_dtype(cfg.compute_dtype),
-    )
+    with spmd(rules):
+        enc_out = encode(cfg, params, batch["frames"], tp=tp, rules=rules)
+        x = decode_train(cfg, params, batch["tokens"], enc_out, tp=tp,
+                         rules=rules)
+        ce = chunked_cross_entropy(
+            x, params["lm_head"], batch["targets"],
+            vocab_size=cfg.vocab_size, seq_chunk=cfg.loss_seq_chunk,
+            compute_dtype=_dtype(cfg.compute_dtype),
+        )
     return ce, {"ce_loss": ce, "loss": ce}
 
 
 def init_encdec_cache(cfg: ModelConfig, params, enc_out: torch.Tensor,
-                      max_seq: int) -> dict:
+                      max_seq: int, tp: int = 1) -> dict:
     """Self-attn cache + per-layer static cross K/V from encoder output."""
-    hp = head_plan(cfg, 1)
+    hp = head_plan(cfg, tp)
     B = enc_out.shape[0]
     cdt = _dtype(cfg.compute_dtype)
     nd = cfg.num_layers
@@ -217,17 +255,23 @@ def init_encdec_cache(cfg: ModelConfig, params, enc_out: torch.Tensor,
 
 
 def encdec_decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
-                       cache_len: int):
+                       cache_len: int, *, tp: int = 1, rules=None):
     """One decoder step against the cross/self caches.  tokens: [B, 1];
     cache_len: the tokens already in the cache (an int).  Returns (logits
     [B, 1, Vp], cache), the cache updated in place."""
     if cache_len + tokens.shape[1] > cache["k"].shape[2]:
         raise ValueError(f"cache of {cache['k'].shape[2]} positions is full")
-    x = _embed(cfg, params, tokens)
-    pos_q = torch.tensor([cache_len], device=tokens.device)
-    for i, p in enumerate(_unstack(params["decoder"]["blocks"], cfg.num_layers)):
-        layer_cache = {name: leaf[i] for name, leaf in cache.items()}
-        x = _dec_block(cfg, p, x, None, pos_q, None, cache=layer_cache,
-                       cache_len=cache_len)
-    x = rms_norm(x, params["decoder"]["final_norm"], cfg.norm_eps)
-    return lm_logits(x, params["lm_head"], _dtype(cfg.compute_dtype)), cache
+    with spmd(rules):
+        x = _embed(cfg, params, tokens)
+        x = _constrain(rules, x, ("batch", "seq_sp", "d_model"))
+        pos_q = torch.tensor([cache_len], device=tokens.device)
+        blocks = _unstack(params["decoder"]["blocks"], cfg.num_layers)
+        for i, p in enumerate(blocks):
+            layer_cache = {name: leaf[i] for name, leaf in cache.items()}
+            x, kv = _dec_block(cfg, p, x, None, pos_q, None, tp, rules,
+                               cache=layer_cache, cache_len=cache_len)
+            for name in ("k", "v"):
+                if kv[name] is not layer_cache[name]:
+                    cache[name][i] = kv[name]
+        x = rms_norm(x, params["decoder"]["final_norm"], cfg.norm_eps)
+        return lm_logits(x, params["lm_head"], _dtype(cfg.compute_dtype)), cache

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import _shard
+from repro_torch.kernels._shard import is_dtensor
 from repro_torch.kernels.rmsnorm.ops import rms_norm  # noqa: F401 (the models' norm)
 from repro_torch.models.common import ParamSpec, fan_in_normal
 
@@ -45,10 +47,36 @@ def mlp_specs(d: int, f: int, layers: int) -> dict:
 
 
 def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor, compute_dtype):
+    if is_dtensor(embedding, tokens):
+        if torch.is_grad_enabled() and embedding.requires_grad:
+            return _embed_local(embedding, tokens, compute_dtype)
+        # without a gradient: DTensor's vocab-parallel lookup (each shard
+        # reads its rows of the table; the rows are summed), no gather
+        return F.embedding(tokens, embedding).to(compute_dtype)
     # index_select, whose gradient on the card is deterministic under
     # torch.use_deterministic_algorithms (a replayed step gives the same bits)
     rows = torch.index_select(embedding, 0, tokens.reshape(-1))
     return rows.reshape(*tokens.shape, embedding.shape[1]).to(compute_dtype)
+
+
+def _embed_local(embedding, tokens, compute_dtype):
+    """The lookup on each shard's token rows against the table gathered
+    whole (its gradient partial over the token shards): DTensor's own
+    lookup strategies, sound forward, fail in the backward for a table
+    sharded over vocab and d_model (a mask of the token shard's shape
+    against the gradient's)."""
+    from torch.distributed.tensor import Replicate
+
+    if is_dtensor(tokens):
+        rows = _shard.row_placements(tokens)
+        local_tokens = _shard.local(tokens, rows)
+    else:
+        rows = (Replicate(),) * embedding.device_mesh.ndim
+        local_tokens = tokens
+    out = embed_tokens(_shard.replicated(embedding, rows), local_tokens,
+                       compute_dtype)
+    like = tokens if is_dtensor(tokens) else embedding
+    return _shard.wrap(out, like, rows, (*tokens.shape, embedding.shape[1]))
 
 
 def lm_logits(x: torch.Tensor, head: torch.Tensor, compute_dtype,
@@ -73,7 +101,14 @@ def _chunk_ce_sum(xc, head, tc, vocab_size: int, softcap: float,
     pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab_size
     logits = torch.where(pad, NEG_INF_F32, logits)
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, tc[..., None])[..., 0]
+    if is_dtensor(logits):
+        # vocab may be sharded: pick the target's logit by a masked sum
+        # (one nonzero term), which DTensor reduces like any sum
+        ids = torch.arange(logits.shape[-1], device=logits.device)
+        hit = ids == tc.unsqueeze(-1)
+        tgt = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        tgt = torch.gather(logits, -1, tc[..., None])[..., 0]
     return torch.sum(lse - tgt)
 
 

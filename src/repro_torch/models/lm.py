@@ -1,5 +1,5 @@
 """Decoder-only language model: every block family of the JAX package's
-``models/lm.py`` at ``tp=1``.
+``models/lm.py``, at any tensor-parallel degree ``tp``.
 
 The layer pattern of the config decides which blocks exist and in which
 order: the attention kinds ``attn`` (full causal), ``local`` (sliding
@@ -21,10 +21,24 @@ through the RG-LRU scan's, in prefill and decode alike.  Decode writes the
 new token's K/V, and a recurrent layer's state, into the cache in place
 and returns the same cache.  ``forward_hidden`` returns the MoE blocks'
 aux losses summed in layer order; ``lm_loss`` weighs them in.
+
+TP head policy (the JAX package's): q heads are padded to
+``padded_size(H, tp)``; zero extra heads feed zero ``wo`` rows, so outputs
+are exact.  KV heads are padded to ``Hp / q_per_kv`` when that keeps the
+GQA grouping (``grouped``); otherwise (llama4's g = 5) the ``expand_kv``
+plan gathers K/V per q head (``_kv_index``).  The vocab is padded to the TP
+degree and the padded logits are masked at the loss.
+
+With ``rules`` (``core/channels.ShardingRules``), the parameters are
+DTensors placed by the rules and the activations are constrained at the
+JAX package's sites (``_constrain``); plain tensors made inside (positions,
+masks) join as replicated (``spmd``).  The kernels run on local shards
+(``kernels/_shard.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any
 
@@ -34,6 +48,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, padded_size
 from repro_torch.device import resolve_device
+from repro_torch.kernels import _shard
+from repro_torch.kernels._shard import is_dtensor
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
@@ -73,13 +89,21 @@ def head_plan(cfg: ModelConfig, tp: int) -> dict:
     return {"Hp": Hp, "Kp": KV, "mode": "expand_kv"}
 
 
+def _kv_index(cfg: ModelConfig, Hp: int, device=None) -> torch.Tensor:
+    """Static per-(padded)-q-head KV head assignment (``expand_kv`` plan)."""
+    idx = [min(h // cfg.q_per_kv, cfg.num_kv_heads - 1)
+           for h in range(cfg.num_heads)]
+    idx += [0] * (Hp - cfg.num_heads)
+    return torch.tensor(idx, dtype=torch.long, device=device)
+
+
 # ---------------------------------------------------------------------------
-# Parameter specs (the JAX package's trees at tp=1)
+# Parameter specs (the JAX package's trees)
 # ---------------------------------------------------------------------------
 
 
-def _attn_specs(cfg: ModelConfig, n: int) -> dict:
-    hp = head_plan(cfg, 1)
+def _attn_specs(cfg: ModelConfig, n: int, tp: int) -> dict:
+    hp = head_plan(cfg, tp)
     D, hd = cfg.d_model, cfg.head_dim
     specs = {
         "ln1": ParamSpec((n, D), ("layers", "d_model"), init="zeros"),
@@ -102,7 +126,7 @@ def _attn_specs(cfg: ModelConfig, n: int) -> dict:
     return specs
 
 
-def _block_specs(cfg: ModelConfig, kind: str, n: int) -> dict:
+def _block_specs(cfg: ModelConfig, kind: str, n: int, tp: int) -> dict:
     D = cfg.d_model
     if kind in ("mlstm", "slstm"):
         core = (xlstm_mod.mlstm_block_specs if kind == "mlstm"
@@ -116,7 +140,7 @@ def _block_specs(cfg: ModelConfig, kind: str, n: int) -> dict:
                 n, D, cfg.rnn_width or D, cfg.conv1d_width),
         }
     elif kind in ATTN_KINDS:
-        specs = _attn_specs(cfg, n)
+        specs = _attn_specs(cfg, n, tp)
     else:
         raise ValueError(f"unknown layer kind {kind!r}")
     if kind == "moe":
@@ -130,14 +154,14 @@ def _block_specs(cfg: ModelConfig, kind: str, n: int) -> dict:
     return specs
 
 
-def lm_param_specs(cfg: ModelConfig) -> dict:
-    Vp = cfg.padded_vocab(1)
+def lm_param_specs(cfg: ModelConfig, tp: int = 1) -> dict:
+    Vp = cfg.padded_vocab(tp)
     specs: dict[str, Any] = {
         "embed": ParamSpec((Vp, cfg.d_model), ("vocab", "d_model_fsdp"),
                            stddev=0.02),
         "final_norm": ParamSpec((cfg.d_model,), ("d_model",), init="zeros"),
         "blocks": {
-            kind: _block_specs(cfg, kind, n)
+            kind: _block_specs(cfg, kind, n, tp)
             for kind, n in cfg.layer_counts().items()
         },
     }
@@ -154,8 +178,113 @@ def lm_param_specs(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _attention_part(cfg, p, x, positions, *, kind, cache=None, cache_len=None,
-                    return_state=False):
+def _constrain(rules, x, axes):
+    if rules is None:
+        return x
+    return rules.constraint(x, axes)
+
+
+def spmd(rules):
+    """The context a sharded forward (and its backward) runs in: plain
+    tensors made inside the model (positions, masks, RoPE tables) take part
+    as replicated.  A no-op without rules."""
+    if rules is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    if DTensor._op_dispatcher._allow_implicit_replication:
+        return contextlib.nullcontext()  # its exit would end the outer one
+    return implicit_replication()
+
+
+def _seq_whole(rules, h):
+    """A block's normed input with its sequence whole (Megatron-style
+    sequence parallelism: the residual stream is sharded over ``seq_sp``,
+    the products take every position)."""
+    return _constrain(rules, h, ("batch", "seq", "d_model"))
+
+
+def _residual(rules, t):
+    """A block's output product back on the residual stream's placements
+    (a reduce-scatter over ``seq_sp`` where the product is partial).  In
+    the backward the same constraint gathers the gradient's sequence before
+    it reaches the product, whose gradient then never flattens a batch
+    sharded on one mesh axis with a sequence sharded on another."""
+    return _constrain(rules, t, ("batch", "seq_sp", "d_model"))
+
+
+def _heads(rules, t, n: int, hd: int):
+    """A projection [B, S, n * hd] viewed as n heads.  Where the model axis
+    does not divide n, the projection is gathered first: a shard of the
+    flat columns is not a whole number of heads."""
+    B, S, _ = t.shape
+    if n % _model_axis(rules):
+        t = _constrain(rules, t, ("batch", "seq", None))
+    return t.reshape(B, S, n, hd)
+
+
+def _model_axis(rules) -> int:
+    return 1 if rules is None else rules.axis_sizes.get("model", 1)
+
+
+def _expand_kv(cfg, hp, k, v, rules):
+    """K/V [B, S, Kp, hd] as the attention takes them.  The ``expand_kv``
+    plan gathers each q head's KV head (``_kv_index``).  Under rules whose
+    model axis does not divide Kp, the grouped KV heads are repeated to the
+    Hp query heads, so heads shard over any model axis (the JAX package
+    always expands for the whole-sequence attention, for the same reason).
+    """
+    Hp, Kp = hp["Hp"], hp["Kp"]
+    if hp["mode"] == "expand_kv":
+        idx = _kv_index(cfg, Hp, k.device)
+        return k.index_select(2, idx), v.index_select(2, idx)
+    if Kp != Hp and Kp % _model_axis(rules):
+        return (k.repeat_interleave(Hp // Kp, dim=2),
+                v.repeat_interleave(Hp // Kp, dim=2))
+    return k, v
+
+
+def _write_kv(c, new, slot, cache_len):
+    """Write ``new`` [B, S, K, hd] into the layer cache ``c`` [B, Sc, K, hd]
+    at ``slot`` (an int, or a [B] tensor of one slot per row) and return the
+    cache.  A plain cache, or a DTensor whose sequence is whole, is written
+    in place on its local shard (the rows of this shard); a cache sharded
+    over its sequence (the dry-run's FlashDecoding layout) is rewritten as a
+    whole by a masked select, which DTensor shards like any pointwise op."""
+    S = new.shape[1]
+    if is_dtensor(c):
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset,
+        )
+
+        if any(p.is_shard() and p.dim == 1 for p in c.placements):
+            if S != 1:
+                raise ValueError("a sequence-sharded cache takes one token a step")
+            pos = torch.arange(c.shape[1], device=new.device)
+            hit = (pos[None, :] == slot if isinstance(cache_len, int)
+                   else pos[None, :] == slot[:, None])  # [1 or B, Sc]
+            return torch.where(hit[:, :, None, None], new.to(c.dtype), c)
+        local_shape, offset = compute_local_shape_and_global_offset(
+            c.shape, c.device_mesh, c.placements)
+        lo, nb = offset[0], local_shape[0]
+        cl = c.to_local()
+        newl = new.redistribute(c.device_mesh, c.placements).to_local() \
+            if is_dtensor(new) else new[lo:lo + nb]
+        if not isinstance(cache_len, int):
+            slot = slot[lo:lo + nb]
+        _write_kv(cl, newl, slot, cache_len)
+        return c
+    if isinstance(cache_len, int):
+        c[:, slot:slot + S] = new.to(c.dtype)
+    else:
+        rows = torch.arange(c.shape[0], device=c.device)
+        c[rows, slot] = new[:, 0].to(c.dtype)
+    return c
+
+
+def _attention_part(cfg, p, x, positions, *, kind, tp=1, rules=None,
+                    cache=None, cache_len=None, return_state=False):
     """Shared attention sub-block. Returns (attn_out, state).
 
     ``cache`` (decode): {"k","v"} [B, Scache, KV, hd] views into the stacked
@@ -167,43 +296,55 @@ def _attention_part(cfg, p, x, positions, *, kind, cache=None, cache_len=None,
     returns this segment's fresh {"k","v"}.  Everything after ``ln1`` is
     the profiler span ``attention``.
     """
-    hp = head_plan(cfg, 1)
+    hp = head_plan(cfg, tp)
     H, KV, hd = hp["Hp"], hp["Kp"], cfg.head_dim
     B, S, _D = x.shape
     cdt = _dtype(cfg.compute_dtype)
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = _seq_whole(rules, rms_norm(x, p["ln1"], cfg.norm_eps))
     with record_function("attention"):
-        q = (h @ p["wq"].to(cdt)).reshape(B, S, H, hd)
-        k = (h @ p["wk"].to(cdt)).reshape(B, S, KV, hd)
-        v = (h @ p["wv"].to(cdt)).reshape(B, S, KV, hd)
+        q = _heads(rules, h @ p["wq"].to(cdt), H, hd)
+        k = _heads(rules, h @ p["wk"].to(cdt), KV, hd)
+        v = _heads(rules, h @ p["wv"].to(cdt), KV, hd)
         if cfg.use_qk_norm:
             q = rms_norm(q, p["q_norm"], cfg.norm_eps)
             k = rms_norm(k, p["k_norm"], cfg.norm_eps)
         q = attn_mod.apply_rope(q, positions, cfg.rope_theta)
         k = attn_mod.apply_rope(k, positions, cfg.rope_theta)
+        if cfg.constrain_attn:
+            q = _constrain(rules, q, ("batch", "seq", "heads", "head_dim"))
 
         state = None
         if cache is not None:
-            ck, cv = cache["k"], cache["v"]
-            size = ck.shape[1]
+            size = cache["k"].shape[1]
             slot = cache_len % size if kind == "local" else cache_len
+            ck = _write_kv(cache["k"], k, slot, cache_len)
+            cv = _write_kv(cache["v"], v, slot, cache_len)
             if isinstance(cache_len, int):
-                ck[:, slot:slot + S] = k.to(ck.dtype)
-                cv[:, slot:slot + S] = v.to(cv.dtype)
                 valid = min(cache_len + S, size)
             else:
-                bidx = torch.arange(B, device=x.device)
-                ck[bidx, slot] = k[:, 0].to(ck.dtype)
-                cv[bidx, slot] = v[:, 0].to(cv.dtype)
                 valid = torch.clamp(cache_len + S, max=size)
-            out = attn_mod.decode_attention(q, ck, cv, valid)
-            state = cache
+            if hp["mode"] == "expand_kv":
+                ck_att, cv_att = _expand_kv(cfg, hp, ck, cv, None)
+            else:
+                ck_att, cv_att = ck, cv
+            out = attn_mod.decode_attention(q, ck_att, cv_att, valid)
+            state = cache if ck is cache["k"] and cv is cache["v"] \
+                else {"k": ck, "v": cv}
         else:
             window = cfg.window_size if kind == "local" else 0
-            out = attn_mod.attention(q, k, v, causal=True, window=window)
+            k_att, v_att = _expand_kv(cfg, hp, k, v, rules)
+            if cfg.constrain_attn:
+                k_att = _constrain(rules, k_att,
+                                   ("batch", "seq", "heads", "head_dim"))
+                v_att = _constrain(rules, v_att,
+                                   ("batch", "seq", "heads", "head_dim"))
+            out = attn_mod.attention(q, k_att, v_att, causal=True,
+                                     window=window)
             if return_state:
                 state = {"k": k, "v": v}
-        out = out.reshape(B, S, H * hd) @ p["wo"].to(cdt)
+        if cfg.constrain_attn:
+            out = _constrain(rules, out, ("batch", "seq", "heads", "head_dim"))
+        out = _residual(rules, out.reshape(B, S, H * hd) @ p["wo"].to(cdt))
     return out.to(x.dtype), state
 
 
@@ -227,7 +368,7 @@ def _state_to_cache(state, kind) -> dict:
     return dict(zip(("c", "n", "m", "h"), state))
 
 
-def _state_part(cfg, kind, p, x, *, cache=None):
+def _state_part(cfg, kind, p, x, *, rules=None, cache=None):
     """Recurrent sub-block (``rec``, ``mlstm`` or ``slstm``).  Returns
     (out, state as cache leaves).
 
@@ -236,17 +377,25 @@ def _state_part(cfg, kind, p, x, *, cache=None):
     whole prompt), the state is the one the prompt leaves behind.
     """
     cdt = _dtype(cfg.compute_dtype)
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = _seq_whole(rules, rms_norm(x, p["ln1"], cfg.norm_eps))
     state = _cache_kind_state(cache, kind)
     if kind == "rec":
         out, new = rec_mod.recurrent_block(p["rec"], h, compute_dtype=cdt,
                                            state=state)
-    elif kind == "mlstm":
-        out, new = xlstm_mod.mlstm_block(p["core"], h, heads=cfg.num_heads,
-                                         compute_dtype=cdt, state=state)
     else:
-        out, new = xlstm_mod.slstm_block(p["core"], h, heads=cfg.num_heads,
-                                         compute_dtype=cdt, state=state)
+        block = (xlstm_mod.mlstm_block if kind == "mlstm"
+                 else xlstm_mod.slstm_block)
+
+        def core(hl, pl, *st):
+            return block(pl, hl, heads=cfg.num_heads, compute_dtype=cdt,
+                         state=st[0] if st else None)
+
+        if is_dtensor(h):  # the cells are independent per batch row
+            out, new = _shard.run_over_rows(
+                core, h, p["core"], *(() if state is None else (state,)))
+        else:
+            out, new = core(h, p["core"], *(() if state is None else (state,)))
+    out = _residual(rules, out)
     new = _state_to_cache(new, kind)
     if cache is not None:
         for name, leaf in new.items():
@@ -255,33 +404,34 @@ def _state_part(cfg, kind, p, x, *, cache=None):
     return out, new
 
 
-def apply_block(cfg, kind, p, x, positions, *, cache=None, cache_len=None,
-                return_state=False):
+def apply_block(cfg, kind, p, x, positions, *, tp=1, rules=None, cache=None,
+                cache_len=None, return_state=False):
     """One residual block of the given kind.  Returns (x, new_cache, aux):
     ``aux`` holds a ``moe`` block's aux losses, else it is empty."""
     cdt = _dtype(cfg.compute_dtype)
     if kind in ATTN_KINDS:
         mix_out, state = _attention_part(
-            cfg, p, x, positions, kind=kind, cache=cache, cache_len=cache_len,
-            return_state=return_state,
+            cfg, p, x, positions, kind=kind, tp=tp, rules=rules, cache=cache,
+            cache_len=cache_len, return_state=return_state,
         )
     elif kind in STATE_KINDS:
-        mix_out, state = _state_part(cfg, kind, p, x, cache=cache)
+        mix_out, state = _state_part(cfg, kind, p, x, rules=rules, cache=cache)
     else:
         raise ValueError(f"unknown layer kind {kind!r}")
     x = x + mix_out
     aux: dict[str, torch.Tensor] = {}
     if kind == "moe":
-        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        h = _seq_whole(rules, rms_norm(x, p["ln2"], cfg.norm_eps))
         moe_out, aux = moe_mod.moe_ffn(
             h, p["moe"], num_experts=cfg.num_experts,
             top_k=cfg.experts_per_token, capacity_factor=cfg.capacity_factor,
             compute_dtype=cdt, dispatch=cfg.moe_dispatch)
-        x = x + moe_out
+        x = x + _residual(rules, moe_out)
     elif "mlp" in p:
-        h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                       p["mlp"]["w_down"], cdt).to(x.dtype)
+        h = _seq_whole(rules, rms_norm(x, p["ln2"], cfg.norm_eps))
+        x = x + _residual(rules, swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                                       p["mlp"]["w_down"], cdt)).to(x.dtype)
+    x = _constrain(rules, x, ("batch", "seq_sp", "d_model"))
     return x, state, aux
 
 
@@ -337,30 +487,39 @@ def _remat(cfg: ModelConfig, params) -> bool:
 
 
 def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor,
-                   extra_embeds: torch.Tensor | None = None):
+                   extra_embeds: torch.Tensor | None = None, *, tp: int = 1,
+                   rules=None):
     """Full-sequence forward to (final hidden states [B, S, D], aux).
 
     ``extra_embeds`` ([B, F, D]) replace the first F token positions (the
     VLM patch / audio frame stub inputs), unscaled.  ``aux`` sums the MoE
     blocks' aux losses in layer order (empty without ``moe`` layers).
     """
+    with spmd(rules):
+        return _forward_hidden(cfg, params, tokens, extra_embeds, tp, rules)
+
+
+def _forward_hidden(cfg, params, tokens, extra_embeds, tp, rules):
     x = _embed(cfg, params, tokens)
     if extra_embeds is not None:
         F = extra_embeds.shape[1]
         x = torch.cat([extra_embeds.to(x.dtype), x[:, F:]], dim=1)
+    x = _constrain(rules, x, ("batch", "seq_sp", "d_model"))
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     remat = _remat(cfg, params)
     aux_total = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
                   for k in MOE_AUX} if "moe" in cfg.layer_counts() else {})
     for kind, p, _i in _layers(cfg, params):
         def block(x, p, kind=kind):
-            x, _state, aux = apply_block(cfg, kind, p, x, positions)
+            x, _state, aux = apply_block(cfg, kind, p, x, positions, tp=tp,
+                                         rules=rules)
             return x, aux
         x, aux = (checkpoint(block, x, p, use_reentrant=False) if remat
                   else block(x, p))
         for k, v in aux.items():
             aux_total[k] = aux_total[k] + v
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _seq_whole(rules, x), aux_total
 
 
 def lm_head_weight(cfg: ModelConfig, params):
@@ -369,13 +528,14 @@ def lm_head_weight(cfg: ModelConfig, params):
     return params["lm_head"]
 
 
-def lm_loss(cfg: ModelConfig, params, batch):
+def lm_loss(cfg: ModelConfig, params, batch, *, tp: int = 1, rules=None):
     """Mean CE over next-token targets + MoE aux losses: (loss, metrics)
     with ``ce_loss``, ``loss`` and, for MoE models, the three aux values.
     ``batch["extra_embeds"]``, where present, is the frontend stub's
     prefix."""
     x, aux = forward_hidden(cfg, params, batch["tokens"],
-                            extra_embeds=batch.get("extra_embeds"))
+                            extra_embeds=batch.get("extra_embeds"), tp=tp,
+                            rules=rules)
     ce = chunked_cross_entropy(
         x, lm_head_weight(cfg, params), batch["targets"],
         vocab_size=cfg.vocab_size, seq_chunk=cfg.loss_seq_chunk,
@@ -400,12 +560,14 @@ def logits_from_hidden(cfg, params, x):
 # ---------------------------------------------------------------------------
 
 
-def cache_spec(cfg: ModelConfig, batch: int, max_seq: int, dtype=None) -> dict:
+def cache_spec(cfg: ModelConfig, batch: int, max_seq: int, tp: int = 1,
+               dtype=None) -> dict:
     """Allocation-free cache description: leaf -> (shape, dtype, logical
-    axes, fill value)."""
+    axes, fill value): the one source of ``init_cache`` and the dry-run's
+    structs (which must never allocate a multi-TB cache)."""
     if dtype is None:
         dtype = _dtype(cfg.compute_dtype)
-    hp = head_plan(cfg, 1)
+    hp = head_plan(cfg, tp)
     width = cfg.rnn_width or cfg.d_model
     hd = cfg.head_dim
     xw = cfg.num_heads * hd  # xlstm inner width
@@ -451,37 +613,50 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int, dtype=None) -> dict:
     return spec
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
-               device=None) -> dict:
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, tp: int = 1,
+               dtype=None, device=None, rules=None) -> dict:
     """Decode state per layer kind (K/V for the attention kinds, the
-    recurrent state for the others), stacked over that kind's layer count."""
+    recurrent state for the others), stacked over that kind's layer count;
+    with ``rules``, each leaf a DTensor placed by them."""
     dev = resolve_device(device)
+
+    def leaf(shp, dt, axes, fill):
+        t = torch.full(shp, fill, dtype=dt, device=dev)
+        return t if rules is None else rules.distribute(t, axes)
+
     return {
-        kind: {name: torch.full(shp, fill, dtype=dt, device=dev)
-               for name, (shp, dt, _axes, fill) in leaves.items()}
-        for kind, leaves in cache_spec(cfg, batch, max_seq, dtype).items()
+        kind: {name: leaf(*spec) for name, spec in leaves.items()}
+        for kind, leaves in cache_spec(cfg, batch, max_seq, tp, dtype).items()
     }
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
-                cache_len):
+                cache_len, *, tp: int = 1, rules=None):
     """One decode step.  tokens: [B, 1]; cache_len: int, or a [B] tensor of
     the tokens already in each row's cache.  Returns (logits [B, 1, Vp],
-    cache), the cache updated in place."""
-    x = _embed(cfg, params, tokens)
-    if isinstance(cache_len, int):
-        positions = torch.tensor([cache_len], device=tokens.device)
-    else:
-        positions = cache_len[:, None]  # [B, 1] per-slot positions
-    for kind, p, i in _layers(cfg, params):
-        x, _state, _aux = apply_block(cfg, kind, p, x, positions,
-                                      cache=_layer(cache[kind], i),
-                                      cache_len=cache_len)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return logits_from_hidden(cfg, params, x), cache
+    cache), the cache updated in place (a sequence-sharded DTensor cache:
+    its new layers written back into the stacks)."""
+    with spmd(rules):
+        x = _embed(cfg, params, tokens)
+        x = _constrain(rules, x, ("batch", "seq_sp", "d_model"))
+        if isinstance(cache_len, int):
+            positions = torch.tensor([cache_len], device=tokens.device)
+        else:
+            positions = cache_len[:, None]  # [B, 1] per-slot positions
+        for kind, p, i in _layers(cfg, params):
+            layer = _layer(cache[kind], i)
+            x, state, _aux = apply_block(cfg, kind, p, x, positions, tp=tp,
+                                         rules=rules, cache=layer,
+                                         cache_len=cache_len)
+            for name, leaf in state.items():
+                if leaf is not layer[name]:
+                    cache[kind][name][i] = leaf
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return logits_from_hidden(cfg, params, x), cache
 
 
-def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int):
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int, *,
+            tp: int = 1, rules=None):
     """Run the full prompt, returning (last-token logits, filled cache).
 
     Only the layers that cache ``max_seq`` positions (``attn``, ``global``
@@ -491,11 +666,20 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int):
     B, S = tokens.shape
     if S > max_seq and {"attn", "global", "moe"} & set(cfg.layer_counts()):
         raise ValueError(f"prompt of {S} tokens exceeds max_seq {max_seq}")
-    cache = init_cache(cfg, B, max_seq, device=tokens.device)
+    with spmd(rules):
+        return _prefill(cfg, params, tokens, max_seq, tp, rules)
+
+
+def _prefill(cfg, params, tokens, max_seq, tp, rules):
+    B, S = tokens.shape
+    cache = init_cache(cfg, B, max_seq, tp, device=tokens.device)
     x = _embed(cfg, params, tokens)
+    x = _constrain(rules, x, ("batch", "seq_sp", "d_model"))
     positions = torch.arange(S, device=tokens.device)
     for kind, p, i in _layers(cfg, params):
-        x, st, _aux = apply_block(cfg, kind, p, x, positions, return_state=True)
+        x, st, _aux = apply_block(cfg, kind, p, x, positions, tp=tp,
+                                  rules=rules, return_state=True)
+        st = {name: _shard.whole(leaf) for name, leaf in st.items()}
         if kind in STATE_KINDS:
             for name, leaf in st.items():
                 cache[kind][name][i].copy_(leaf)

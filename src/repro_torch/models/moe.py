@@ -36,6 +36,9 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from repro_torch.kernels import _shard
+from repro_torch.kernels._shard import is_dtensor
+
 from repro_torch.models.common import ParamSpec, fan_in_normal
 
 
@@ -129,7 +132,37 @@ def moe_ffn(
 
     ``params`` holds per-layer slices: router [D, E], w_gate/w_up [E, D, F],
     w_down [E, F, D] (+ optional shared_* dense weights).
+
+    A DTensor ``x`` runs shard by shard over its batch rows (routing is per
+    row) with the weights gathered whole; the aux losses are formed from
+    the token means of every shard (``_aux``), so they equal the
+    unsharded ones.
     """
+    kw = dict(num_experts=num_experts, top_k=top_k,
+              capacity_factor=capacity_factor, compute_dtype=compute_dtype,
+              dispatch=dispatch)
+    if is_dtensor(x):
+        out, stats = _shard.run_over_rows(
+            lambda xl, pl: _moe_core(xl, pl, **kw), x, params, extra="means")
+    else:
+        out, stats = _moe_core(x, params, **kw)
+    return out, _aux(stats, num_experts)
+
+
+def _aux(stats: dict, E: int) -> dict:
+    """Switch load-balance E * sum_e f_e * P_e (f = the fraction of tokens
+    whose first choice is e, P = the mean router prob for e), the z-loss
+    and the fraction of slots dropped, from token means."""
+    return {
+        "moe_lb_loss": E * torch.sum(stats["dispatch_frac"] * stats["mean_prob"]),
+        "moe_z_loss": stats["z_mean"],
+        "moe_drop_fraction": 1.0 - stats["keep_mean"],
+    }
+
+
+def _moe_core(x, params, *, num_experts, top_k, capacity_factor,
+              compute_dtype, dispatch):
+    """(out, token means) of ``moe_ffn`` on plain tensors."""
     with record_function("moe_ffn"):
         B, S, D = x.shape
         E = num_experts
@@ -146,7 +179,6 @@ def moe_ffn(
                   else position_in_expert_onehot)
         pos = pos_fn(flat_e, E)  # [B, S*k]
         keep = pos < capacity
-        drop_fraction = 1.0 - torch.mean(keep.float())
         safe_pos = torch.where(keep, pos, capacity)
         rows = torch.arange(B, device=x.device)[:, None].expand(B, S * top_k)
 
@@ -177,17 +209,10 @@ def moe_ffn(
             out = out + ((F.silu(sg) * su)
                          @ params["shared_w_down"].to(compute_dtype)).float()
 
-        # -- aux losses ------------------------------------------------------
-        # Switch load-balance: E * sum_e f_e * P_e (f = fraction of tokens
-        # whose first choice is e, P = mean router prob for e).
-        dispatch_frac = F.one_hot(top_e[..., 0], E).float().mean(dim=(0, 1))
-        mean_prob = probs.mean(dim=(0, 1))
-        lb_loss = E * torch.sum(dispatch_frac * mean_prob)
-        z_loss = torch.mean(torch.logsumexp(router_logits, dim=-1) ** 2)
-
-        aux = {
-            "moe_lb_loss": lb_loss,
-            "moe_z_loss": z_loss,
-            "moe_drop_fraction": drop_fraction,
+        stats = {
+            "dispatch_frac": F.one_hot(top_e[..., 0], E).float().mean(dim=(0, 1)),
+            "mean_prob": probs.mean(dim=(0, 1)),
+            "z_mean": torch.mean(torch.logsumexp(router_logits, dim=-1) ** 2),
+            "keep_mean": torch.mean(keep.float()),
         }
-        return out.to(x.dtype), aux
+        return out.to(x.dtype), stats

@@ -45,7 +45,8 @@ def tree_map(fn, tree: Any) -> Any:
 
 def init_state(params: Any, cfg: AdamWConfig) -> dict:
     dt = getattr(torch, cfg.state_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
+    # zeros_like: a DTensor parameter's moments take its placements
+    zeros = lambda p: torch.zeros_like(p, dtype=dt)  # noqa: E731
     device = tree_leaves(params)[0].device
     return {
         "m": tree_map(zeros, params),

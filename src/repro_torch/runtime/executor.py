@@ -1,5 +1,5 @@
-"""The training executor: a fault-tolerant step loop on one device (the
-JAX package's ``runtime/executor.py`` at ``rules=None``, ``mesh=None``).
+"""The training executor: a fault-tolerant step loop (the JAX package's
+``runtime/executor.py``), on one device or over a mesh.
 
     load  : init or restore state -> build the step                  (timed)
     run   : per step: data -> train_step -> metrics                  (timed)
@@ -9,10 +9,11 @@ JAX package's ``runtime/executor.py`` at ``rules=None``, ``mesh=None``).
     finish: final blocking checkpoint; the load/run timing report
 
 The data pipeline is the Emit stage, and restore-and-replay is the
-demand-driven re-dispatch of the paper's protocol in its SPMD form.
-Sharding rules, a mesh and elastic re-meshing wait for the port's
-sharding work (ROADMAP item 9): a value for any of them raises
-``NotImplementedError``.
+demand-driven re-dispatch of the paper's protocol in its SPMD form.  With
+``rules`` (and their ``mesh``) the parameters, moments and batches are
+DTensors placed by the rules; with an ``ElasticController``, a node loss
+re-meshes onto the surviving nodes and restores the last checkpoint onto
+the new placements.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.timing import TimingCollector
 from repro_torch.data.pipeline import DataPipeline, source_for
 from repro_torch.device import resolve_device
-from repro_torch.models.common import init_params
+from repro_torch.kernels._shard import whole
+from repro_torch.models.common import init_params, param_shardings
 from repro_torch.optim import adamw
 from repro_torch.runtime import steps as steps_mod
 from repro_torch.runtime.failures import (
@@ -40,6 +42,16 @@ from repro_torch.runtime.failures import (
 )
 
 log = logging.getLogger("repro_torch.executor")
+
+
+def _writes(mesh) -> bool:
+    """Whether this process writes the checkpoints: the first rank of the
+    mesh (every process of a single-process run)."""
+    import torch.distributed as dist
+
+    if mesh is None or not dist.is_initialized():
+        return True
+    return dist.get_rank() == int(mesh.mesh.min())
 
 
 @dataclass
@@ -71,19 +83,16 @@ class Trainer:
         elastic=None,
         device=None,
     ):
-        for name, value in (("rules", rules), ("mesh", mesh),
-                            ("elastic", elastic)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"Trainer({name}=...): sharding and elastic re-meshing "
-                    f"are not ported yet (ROADMAP item 9)")
-        if trainer_cfg.tp != 1:
-            raise NotImplementedError("tp > 1 is not ported yet (ROADMAP item 9)")
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.shape = shape
         self.cfg = trainer_cfg
         self.opt_cfg = opt_cfg or adamw.AdamWConfig()
+        self.rules = rules
+        self.mesh = mesh if mesh is not None else (
+            rules.mesh if rules is not None else None)
+        self.elastic = elastic
+        self.excluded_nodes: set[int] = set()
         self.failure_plan = failure_plan or FailurePlan()
         self.timing = TimingCollector()
         self.monitor = StragglerMonitor()
@@ -92,33 +101,44 @@ class Trainer:
         )
         self.metrics_history: list[dict] = []
         self.restarts = 0
+        self.excluded = False  # this rank left the mesh at a re-mesh
         self._build()
 
     # -- load phase -----------------------------------------------------------
 
     def _build(self) -> None:
+        self.ckpt.writer = _writes(self.mesh)
         with self.timing.phase("host", "load"):
             self.train_step = steps_mod.make_train_step(
-                self.model_cfg, self.opt_cfg, peak_lr=self.cfg.peak_lr,
-                warmup_steps=self.cfg.warmup_steps,
+                self.model_cfg, self.opt_cfg, tp=self.cfg.tp, rules=self.rules,
+                peak_lr=self.cfg.peak_lr, warmup_steps=self.cfg.warmup_steps,
                 total_steps=self.cfg.num_steps,
             )
             self.pipeline = DataPipeline(
                 source_for(self.model_cfg, self.shape, seed=self.cfg.seed),
-                self.device,
+                self.device, self.rules,
             )
             self.step0, self.params, self.opt_state = self._init_or_restore()
+
+    def _state_shardings(self):
+        if self.rules is None:
+            return None
+        specs = steps_mod.model_param_specs(self.model_cfg, self.cfg.tp)
+        p_sh = param_shardings(specs, self.rules)
+        return {"params": p_sh, "opt": {"m": p_sh, "v": p_sh, "count": None}}
 
     def _init_or_restore(self):
         meta = {"config_hash": config_hash(self.model_cfg)}
         if self.cfg.resume and self.ckpt.latest_step() is not None:
-            step, state, _m = self.ckpt.restore(device=self.device,
-                                                expect_meta=meta)
+            step, state, _m = self.ckpt.restore(
+                device=self.device, expect_meta=meta,
+                shardings=self._state_shardings())
             log.info("restored checkpoint at step %d", step)
             return step, state["params"], state["opt"]
-        specs = steps_mod.model_param_specs(self.model_cfg)
+        specs = steps_mod.model_param_specs(self.model_cfg, self.cfg.tp)
         params = init_params(specs, self.cfg.seed, self.device,
-                             getattr(torch, self.model_cfg.param_dtype))
+                             getattr(torch, self.model_cfg.param_dtype),
+                             rules=self.rules)
         opt_state = adamw.init_state(params, self.opt_cfg)
         return 0, params, opt_state
 
@@ -138,7 +158,17 @@ class Trainer:
             raise RuntimeError("restart budget exhausted") from exc
         log.warning("handling %s (restart %d)", exc, self.restarts)
         self.ckpt.wait()
-        # Rebuild the step and restore the last checkpoint.
+        if exc.kind in ("node_loss", "straggler") and self.elastic is not None:
+            self.excluded_nodes.add(exc.node)
+            nodes = self.elastic.largest_batch_divisor_nodes(
+                self.shape.global_batch, self.excluded_nodes)
+            self.mesh, self.rules = self.elastic.build(nodes)
+            log.warning("elastic re-mesh onto nodes %s -> mesh %s", nodes,
+                        dict(zip(self.mesh.mesh_dim_names, self.mesh.shape)))
+            if self.mesh.get_coordinate() is None:
+                self.excluded = True  # a lost node's rank: it stops here
+                return
+        # Crash or re-mesh: rebuild the step and restore the last checkpoint.
         self._build()
 
     # -- run phase ---------------------------------------------------------------
@@ -158,16 +188,22 @@ class Trainer:
                 )
                 if ev is not None and ev.kind == "straggler":
                     time.sleep(ev.slowdown * max(self.monitor.median(), 1e-3))
-                row = {k: float(v) for k, v in metrics.items()}  # waits for the step
+                row = {k: float(whole(v)) for k, v in metrics.items()}  # waits
                 dt = time.perf_counter() - t0
                 self.timing.add("host", "run", dt * 1e3)
-                self.monitor.record(dt)
+                straggling = self.monitor.record(dt)
+                if straggling and self.elastic is not None and ev is not None:
+                    raise SimulatedNodeFailure(step, "straggler", ev.node)
                 self.metrics_history.append(row | {"step": step})
                 step += 1
                 if step % self.cfg.checkpoint_every == 0:
                     self._save(step)
             except SimulatedNodeFailure as exc:
                 self._handle_failure(exc)
+                if self.excluded:
+                    return {"final_step": step, "restarts": self.restarts,
+                            "excluded": True, "last_metrics": {},
+                            "timing": self.timing.report()}
                 step = self.step0
         self.ckpt.wait()
         self._save(end, block=True)

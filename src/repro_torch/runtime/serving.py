@@ -16,7 +16,9 @@ Decode is *batched across slots* (one ``decode_step`` call per engine tick,
 per-slot cache lengths): new requests join on any tick without waiting for
 others to finish.  The engine runs on the device its parameters lie on.
 A prefill's cache is spliced into the engine's cache in place, and decode
-writes each slot's new K/V into it in place.
+writes each slot's new K/V into it in place.  With ``rules`` the parameters
+are DTensors, the engine's cache is placed by the rules, prefill and decode
+run under DTensor dispatch, and each rank splices the rows of its shard.
 """
 
 from __future__ import annotations
@@ -31,7 +33,29 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.timing import TimingCollector
+from repro_torch.kernels._shard import whole
 from repro_torch.models import lm as lm_mod
+
+
+def _splice(full: torch.Tensor, slot: int, one: torch.Tensor) -> None:
+    """Write a batch-1 prefill leaf ``one`` [n, 1, ...] into row ``slot`` of
+    the engine's stacked cache leaf ``full`` [n, B, ...], in place.  A
+    DTensor cache is written on its local shard: the rank that holds the
+    slot's row writes its part of the leaf."""
+    if not hasattr(full, "to_local"):
+        full[:, slot] = one[:, 0]
+        return
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    shape, offset = compute_local_shape_and_global_offset(
+        full.shape, full.device_mesh, full.placements)
+    if not offset[1] <= slot < offset[1] + shape[1]:
+        return
+    rest = tuple(slice(o, o + n) for o, n in zip(offset[2:], shape[2:]))
+    src = one[(slice(offset[0], offset[0] + shape[0]), 0) + rest]
+    full.to_local()[:, slot - offset[1]] = src
 
 
 @dataclass
@@ -57,6 +81,8 @@ class ServingEngine:
         *,
         max_slots: int = 4,
         max_seq: int = 256,
+        tp: int = 1,
+        rules=None,
         eos_id: int | None = None,
     ):
         if cfg.encoder_layers:
@@ -66,12 +92,14 @@ class ServingEngine:
         self.device = params["embed"].device
         self.max_slots = max_slots
         self.max_seq = max_seq
+        self.tp = tp
+        self.rules = rules
         self.eos_id = eos_id
         self.timing = TimingCollector()
 
         with self.timing.phase("host", "load"):
-            self.cache = lm_mod.init_cache(cfg, max_slots, max_seq,
-                                           device=self.device)
+            self.cache = lm_mod.init_cache(cfg, max_slots, max_seq, tp,
+                                           device=self.device, rules=rules)
             self.lens = np.zeros(max_slots, np.int64)  # tokens in cache
             self.remaining = np.zeros(max_slots, np.int64)
             self.slot_rid = np.full(max_slots, -1, np.int64)
@@ -106,12 +134,12 @@ class ServingEngine:
             logits, pref_cache = lm_mod.prefill(
                 self.cfg, self.params,
                 torch.tensor([prompt], dtype=torch.int64, device=self.device),
-                self.max_seq,
+                self.max_seq, tp=self.tp, rules=self.rules,
             )
             for kind, leaves in pref_cache.items():
                 for name, one in leaves.items():
-                    self.cache[kind][name][:, slot] = one[:, 0]
-            first = int(torch.argmax(logits[0, 0, : self.cfg.vocab_size]))
+                    _splice(self.cache[kind][name], slot, one)
+            first = int(torch.argmax(whole(logits)[0, 0, : self.cfg.vocab_size]))
             self.slot_rid[slot] = req.rid
             self.slot_tokens[slot] = list(prompt) + [first]
             self.slot_prompt_len[slot] = len(prompt)
@@ -140,9 +168,10 @@ class ServingEngine:
         tokens = torch.tensor(self.last_token[:, None], device=self.device)
         lens = torch.tensor(self.lens, device=self.device)
         logits, self.cache = lm_mod.decode_step(
-            self.cfg, self.params, self.cache, tokens, lens)
+            self.cfg, self.params, self.cache, tokens, lens, tp=self.tp,
+            rules=self.rules)
         next_tokens = torch.argmax(
-            logits[:, 0, : self.cfg.vocab_size], dim=-1).cpu().numpy()
+            whole(logits)[:, 0, : self.cfg.vocab_size], dim=-1).cpu().numpy()
         self.timing.add("host", "run", (time.perf_counter() - t0) * 1e3)
 
         for slot in range(self.max_slots):

@@ -76,7 +76,12 @@ def test_every_port_module_imports_without_jax_triton_or_repro():
                  "repro_torch.runtime.executor", "repro_torch.launch.train",
                  "repro_torch.train_lm",
                  "repro_torch.kernels.flash_attention.ref",
-                 "repro_torch.kernels.rmsnorm.ref"):
+                 "repro_torch.kernels.rmsnorm.ref",
+                 "repro_torch.kernels._shard",
+                 "repro_torch.core.channels", "repro_torch.core.hlo",
+                 "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+                 "repro_torch.launch.roofline", "repro_torch.launch.report",
+                 "repro_torch.runtime.elastic", "repro_torch.models.flops"):
         assert name in seen["modules"]
 
 

@@ -249,20 +249,43 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
             flash_kernel.LAUNCHES_BY_VARIANT) == before
 
 
-@pytest.mark.parametrize("call", [
-    lambda t: rms_ops.rms_norm(t, torch.zeros(32, device="meta")),
-    lambda t: flash_ops.flash_attention(t[None, None], t[None, None],
-                                        t[None, None]),
-    lambda t: rglru_ops.rglru_scan(t[None], t[None]),
-    lambda t: rglru_ops.rglru_scan(torch.zeros(1, 8, 32), torch.zeros(1, 8, 32),
-                                   t[:1]),
+@pytest.mark.parametrize("impl,entry", [
+    (lambda t: rms_ops._forward_impl(t, torch.zeros(32, device="meta"), 1e-6),
+     lambda t: rms_ops.rms_norm(t, torch.zeros(32, device="meta"))),
+    (lambda t: flash_ops._forward_impl(t[None, None], t[None, None],
+                                       t[None, None], True, 0),
+     lambda t: flash_ops.flash_attention(t[None, None], t[None, None],
+                                         t[None, None])),
+    (lambda t: rglru_ops._scan_impl(t[None], t[None]),
+     lambda t: rglru_ops.rglru_scan(t[None], t[None])),
+    (lambda t: rglru_ops._scan_impl(torch.zeros(1, 8, 32), torch.zeros(1, 8, 32),
+                                    t[:1]),
+     lambda t: rglru_ops.rglru_scan(torch.zeros(1, 8, 32, device="meta"),
+                                    torch.zeros(1, 8, 32, device="meta"), t[:1])),
 ], ids=["rmsnorm", "flash", "rglru", "rglru_h0_off_cpu"])
-def test_entry_points_send_non_cpu_tensors_to_the_kernel(call):
-    """A tensor off the CPU never takes the plain version: it reaches the
-    kernel's wrapper, which refuses anything but a CUDA tensor."""
+def test_entry_points_send_non_cpu_tensors_to_the_kernel(impl, entry, monkeypatch):
+    """A tensor off the CPU never takes the plain version: the op's
+    implementation (what a CUDA tensor runs) hands it to the kernel's
+    wrapper, which refuses anything but a CUDA tensor.  Through the public
+    entry point (a ``torch.library`` op) a meta tensor takes the op's fake
+    impl: shapes only, no plain version and no launch."""
+    def plain_must_not_run(*_a, **_k):
+        raise AssertionError("plain version reached with a non-CPU tensor")
+
+    for module, name in ((rms_ops, "rms_norm_reference"),
+                         (flash_ops, "attention_reference"),
+                         (rglru_ops, "rglru_scan_reference")):
+        monkeypatch.setattr(module, name, plain_must_not_run)
+    before = (rms_kernel.LAUNCHES, flash_kernel.LAUNCHES, rglru_kernel.LAUNCHES)
     for dtype in (torch.float32, torch.bfloat16):  # either flash variant
+        t = torch.zeros(8, 32, device="meta", dtype=dtype)
         with pytest.raises(ValueError, match="CUDA tensor"):
-            call(torch.zeros(8, 32, device="meta", dtype=dtype))
+            impl(t)
+        out = entry(t)
+        out = out[0] if isinstance(out, tuple) else out
+        assert out.device.type == "meta"
+    assert (rms_kernel.LAUNCHES, flash_kernel.LAUNCHES,
+            rglru_kernel.LAUNCHES) == before
 
 
 def test_build_flags_are_per_source_and_hashed():

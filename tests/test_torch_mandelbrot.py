@@ -246,10 +246,21 @@ def test_cuda_tensors_go_to_the_kernel_not_the_plain_version(monkeypatch):
 
     seen = []
     monkeypatch.setattr(port_ops, "mandelbrot_reference", plain_must_not_run)
-    monkeypatch.setattr(port_ops, "mandelbrot_cuda",
-                        lambda x, y, n: seen.append((x.device.type, n)))
+    def kernel(x, y, n):
+        seen.append((x.device.type, n))
+        return tuple(torch.empty(x.shape, dtype=torch.int32, device=x.device)
+                     for _ in range(2))
+
+    monkeypatch.setattr(port_ops, "mandelbrot_cuda", kernel)
     x = torch.empty(2, 3, device="meta")
-    port_ops.mandelbrot(x, x, max_iters=7)
+    # the op's implementation (what a CUDA tensor runs) takes the kernel
+    port_ops._mandelbrot_impl(x, x, 7)
+    assert seen == [("meta", 7)]
+    # the entry point is a torch.library op: a meta tensor takes its fake
+    # impl (shapes only), never the plain version
+    iters, colour = port_ops.mandelbrot(x, x, max_iters=7)
+    assert iters.device.type == colour.device.type == "meta"
+    assert iters.dtype == torch.int32 and tuple(iters.shape) == (2, 3)
     assert seen == [("meta", 7)]
 
 
@@ -292,8 +303,8 @@ def test_kernel_wrapper_rejects_what_it_cannot_launch(x0, y0):
     launches = port_kernel.LAUNCHES
     with pytest.raises(ValueError, match="CUDA tensor"):
         port_kernel.mandelbrot_cuda(x0, y0, 10)
-    with pytest.raises(ValueError):
-        port_ops.mandelbrot(x0.to("meta"), y0, max_iters=10)
+    with pytest.raises(ValueError):  # the op's implementation, off the CPU
+        port_ops._mandelbrot_impl(x0.to("meta"), y0, 10)
     assert port_kernel.LAUNCHES == launches
 
 
