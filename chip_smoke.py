@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from ``src/repro_torch`` (one ``nvcc``
-per source, all at once) and drives the port's paths on the card:
+Builds the port's CUDA kernels from ``src/repro_torch`` (one ``nvcc`` per
+source, all at once) and drives the port's paths on the card:
 
 1. The paper's Mandelbrot job (3,200 lines x 5,600 points, escape value
    1,000, 2 clusters x 4 cores) parsed from ``.cgpp``, verified, planned and
@@ -42,14 +42,17 @@ per source, all at once) and drives the port's paths on the card:
 4. Training: the gradients of the three model kernels held against their
    plain versions (the RMS-norm backward kernel; the RG-LRU backward, the
    scan kernel on reversed inputs, bit-equal to the same construction over
-   ``rglru_scan_chunked``; the flash Function's explicit backward against
+   ``rglru_scan_chunked``; the flash backward kernel against
+   ``flash_backward_reference`` and the explicit gradient in f32, each case
+   twice and bit-equal, and the flash Function, both kernels, against
    autograd of the plain forward); the ``Trainer`` on recurrentgemma-2b's
    smoke config in float32 under ``torch.use_deterministic_algorithms``,
    with a crash injected mid-run (the replayed losses bit-identical) and
    its losses against the port's own CPU run from the same checkpoint;
    then ``make_train_step`` at recurrentgemma-2b's full width and depth
    (26 layers, bf16 compute, f32 parameters and AdamW state, B 1 x S 2048),
-   where each step's kernel launches are counted.
+   where each step's kernel launches are counted (no training phase may
+   call the explicit flash gradient on the card).
 5. The other block families, at full width: olmoe-1b-7b (MoE, 64 experts
    top-8) cut to 2 layers in float32 (engine == offline greedy), then
    served at full depth in bf16 with its prompts' drop fractions and a
@@ -90,7 +93,8 @@ a library call's (RMS norm and RG-LRU also split into their prefill and
 decode-tick launches, beside the time of as many launches at the least
 shape; the two backward kernels at the training path's shapes; RMS norm
 and flash also ``by_path``, their launches and device time on each path
-of part 5); the last line is the run's verdict.
+of part 5, and the flash backward's on each training path); the last
+line is the run's verdict.
 
 Without a CUDA device, or without the repository around it, it exits
 non-zero and prints no result.
@@ -135,9 +139,12 @@ from repro_torch.core.builder import ClusterBuilder  # noqa: E402
 from repro_torch.core.verify import verify_spec  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_backward_reference,
+    attention_lse_reference,
     attention_reference,
+    flash_backward_reference,
 )
 from repro_torch.kernels.mandelbrot import kernel as mandel_kernel  # noqa: E402
 from repro_torch.kernels.mandelbrot.ops import mandelbrot_line_stats  # noqa: E402
@@ -305,9 +312,25 @@ RMS_BWD_SHAPES = [(9, 77), (2048, 2560), (2048, 4096), (4, 64), (2048, 1024),
                   (2048, 2048), (512, 5120)]
 RGLRU_BWD_S, RGLRU_BWD_W = (1, 16, 17, 2048), 2560
 FLASH_BWD = [(1, 10, 1, 2048, 256, 2048), (1, 4, 2, 50, 16, 32), (1, 32, 4, 1000, 128, 0)]
+# The backward kernel alone (b, h, kv, sq, skv, d, causal, window): FLASH_BWD's
+# three; seamless's encoder (non-causal) and a cross-attention of 1,024
+# queries over 700 keys at head_dim 64; internvl2-2b's GQA 16 / 8 at S
+# 2,304 and olmoe's 16 / 16 at 2,048, head_dim 128; head_dim 32 at a ragged
+# S of 77; recurrentgemma-2b at S 3,000 with its window of 2,048.
+FLASH_BWD_KERNEL = ([(b, h, kv, s, s, d, True, w) for b, h, kv, s, d, w in FLASH_BWD]
+                    + [(1, 16, 16, 1024, 1024, 64, False, 0),
+                       (1, 16, 16, 1024, 700, 64, False, 0),
+                       (1, 16, 8, 2304, 2304, 128, True, 0),
+                       (1, 16, 16, 2048, 2048, 128, True, 0),
+                       (1, 4, 2, 77, 77, 32, True, 0),
+                       (1, 10, 1, 3000, 3000, 256, True, 2048)])
 # Gradients are compared as |got - want| <= tol * max(1, |want|): at S 2048
 # dV and dK reach 8-16, where one bf16 spacing is 0.0625.
 FLASH_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# The forward kernel's log-sum-exp against attention_lse_reference, absolute:
+# values of 8-16 (one float32 spacing 9.5e-7), each a sum of up to 3,000
+# exponentials taken in another order.
+FLASH_LSE_TOL = 1e-5
 TRAINER_SEQ, TRAINER_BATCH, TRAINER_STEPS = 64, 4, 8
 TRAINER_CKPT_EVERY, TRAINER_CRASH_AT, TRAINER_TOL = 3, 5, 1e-4
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2048, 1, 3
@@ -806,16 +829,19 @@ def build_kernels() -> None:
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(9) as pool:
+    with ThreadPoolExecutor(11) as pool:
         builds = {name: pool.submit(timed_load, load) for name, load in (
             ("mandelbrot", mandel_kernel.load), ("rmsnorm", rms_kernel.load),
             ("rmsnorm_backward", rms_kernel.load_backward),
-            ("flash_attention", flash_kernel.load), ("rglru", rglru_kernel.load))}
+            ("flash_attention", flash_kernel.load),
+            ("flash_attention_backward", flash_kernel.load_backward),
+            ("rglru", rglru_kernel.load))}
         ptxas = {f"{name}_ptxas": pool.submit(ptxas_report, source, flags)
                  for name, source, flags in (
                      ("mandelbrot", mandel_kernel.SOURCE, mandel_kernel.FLAGS),
                      ("rmsnorm", rms_kernel.SOURCE, ()),
                      ("rmsnorm_backward", rms_kernel.BACKWARD_SOURCE, ()),
+                     ("flash_attention_backward", flash_kernel.BACKWARD_SOURCE, ()),
                      ("rglru", rglru_kernel.SOURCE, ()))}
         seconds = {name: f.result() for name, f in builds.items()}
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -837,6 +863,7 @@ def main() -> None:
           # work function ships by plain pickle and payloads by pickle
           **{name: installed_version(name) for name in ("cloudpickle", "msgpack")}})
     build_kernels()
+    watch_explicit_flash_gradient()
 
     chunk = mandel_kernel.chunk()
     k_edge = [(h, w, n) for h, w in K_EDGE_SHAPES
@@ -1004,7 +1031,7 @@ def main() -> None:
     # path at full width (its launches counted from zero just before it).
     bwd_errs = {"rmsnorm_backward": check_rmsnorm_backward(),
                 "rglru_backward": check_rglru_backward(),
-                "flash_backward": check_flash_backward()}
+                "flash_backward": max(check_flash_backward_kernel(), check_flash_backward())}
     train_trainer()
     train = train_full()
     rows += train_kernel_rows(train, bwd_errs,
@@ -1015,7 +1042,8 @@ def main() -> None:
     new_paths = by_path(other_families())
     spmd_phases(train)
     for row in rows:
-        key = {"rmsnorm": "rmsnorm", "flash_attention_forward": "flash"}.get(row["name"])
+        key = {"rmsnorm": "rmsnorm", "flash_attention_forward": "flash",
+               "flash_attention_backward": "flash_backward"}.get(row["name"])
         if key:
             row["by_path"] = new_paths[key]
     print(card, flush=True)
@@ -1369,7 +1397,11 @@ def reset_launches() -> None:
     for module in KERNELS.values():
         module.LAUNCHES = 0
     rms_kernel.BACKWARD_LAUNCHES = rglru_kernel.BACKWARD_LAUNCHES = 0
+    flash_kernel.BACKWARD_LAUNCHES = 0
     flash_kernel.LAUNCHES_BY_VARIANT = dict.fromkeys(flash_kernel.LAUNCHES_BY_VARIANT, 0)
+    flash_kernel.BACKWARD_LAUNCHES_BY_VARIANT = dict.fromkeys(
+        flash_kernel.BACKWARD_LAUNCHES_BY_VARIANT, 0)
+    EXPLICIT_FLASH_GRADIENT["on_cuda"] = 0
 
 
 def block_norms(cfg, kind: str) -> int:
@@ -1957,13 +1989,82 @@ def check_rglru_backward() -> float:
     return worst
 
 
+def flash_backward_inputs(b, h, kv, sq, skv, d, causal, window, dtype, gen):
+    """q, k, v in the model's layout, the forward kernel's out and lse, and
+    a random incoming gradient."""
+    q, k, v = flash_inputs(b, h, kv, sq, skv, d, dtype, gen, True)
+    lse = torch.empty((b, h, sq), device="cuda")
+    out = flash_kernel.flash_attention_cuda(q, k, v, causal=causal, window=window, lse=lse)
+    d_out = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    return q, k, v, out, d_out, lse
+
+
+def gradient_errors(got, want) -> list[float]:
+    """max |got - want| / max(1, |want|) of each of dq, dk, dv."""
+    return [float(((g.float() - w.float()).abs() / w.float().abs().clamp(min=1.0)).max())
+            for g, w in zip(got, want)]
+
+
+def check_flash_backward_kernel() -> float:
+    """The backward kernel alone against its plain version
+    (``flash_backward_reference``: P from the same lse) and against the
+    explicit gradient in float32 from the same inputs, both dtypes, every
+    case twice: the two runs must give the same bits.  The forward
+    kernel's lse is held against ``attention_lse_reference``."""
+    gen = torch.Generator("cuda").manual_seed(11)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        variant = flash_kernel.VARIANTS[dtype]
+        for b, h, kv, sq, skv, d, causal, window in FLASH_BWD_KERNEL:
+            q, k, v, out, d_out, lse = flash_backward_inputs(
+                b, h, kv, sq, skv, d, causal, window, dtype, gen)
+            before = dict(flash_kernel.BACKWARD_LAUNCHES_BY_VARIANT)
+            got = flash_kernel.flash_attention_backward_cuda(
+                q, k, v, out, d_out, lse, causal=causal, window=window)
+            again = flash_kernel.flash_attention_backward_cuda(
+                q, k, v, out, d_out, lse, causal=causal, window=window)
+            torch.cuda.synchronize()
+            ran = {x: n - before[x] for x, n in flash_kernel.BACKWARD_LAUNCHES_BY_VARIANT.items()}
+            plain = flash_backward_reference(q, k, v, out, d_out, lse, causal=causal,
+                                             window=window)
+            oracle = attention_backward_reference(
+                *(t.float() for t in (q, k, v, out, d_out)), causal=causal, window=window)
+            lse_want = attention_lse_reference(q, k, causal=causal, window=window)
+            err_plain, err_oracle = gradient_errors(got, plain), gradient_errors(got, oracle)
+            lse_err = float((lse - lse_want).abs().max())
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            ok = (same and max(err_plain + err_oracle) <= FLASH_BWD_TOL[dtype]
+                  and all(g.dtype == dtype and g.shape == t.shape
+                          and bool(torch.isfinite(g).all()) for g, t in zip(got, (q, k, v)))
+                  and lse_err <= FLASH_LSE_TOL
+                  and ran == {x: 2 * (x == variant) for x in ran})
+            emit({"phase": "flash_backward_kernel_vs_plain",
+                  "shape": [b, h, kv, sq, skv, d], "causal": causal, "window": window,
+                  "dtype": str(dtype), "split": flash_kernel.backward_split(
+                      flash_kernel.backward_keys_per_block(variant, d), b, kv, h // kv, skv),
+                  "max_err_dq_dk_dv_vs_plain": err_plain,
+                  "max_err_dq_dk_dv_vs_explicit_f32": err_oracle,
+                  "tol_times_max_1_abs": FLASH_BWD_TOL[dtype], "lse_max_abs_err": lse_err,
+                  "lse_tol": FLASH_LSE_TOL, "repeat_bit_equal": same,
+                  "backward_launches_by_variant": ran, "ok": ok})
+            if not ok:
+                raise SystemExit(f"flash backward kernel differs at "
+                                 f"{(b, h, kv, sq, skv, d, causal, window)} {dtype}")
+            worst = max(worst, *err_plain, *err_oracle)
+            del q, k, v, out, d_out, lse, got, again, plain, oracle
+    torch.cuda.empty_cache()
+    return worst
+
+
 def check_flash_backward() -> float:
-    """The flash Function's gradients (kernel forward, explicit backward)
-    against autograd of the plain forward, in the model's layout."""
+    """The flash Function's gradients (the forward and backward kernels)
+    against autograd of the plain forward, in the model's layout; one
+    backward launch a case, through the dtype's variant."""
     gen = torch.Generator("cuda").manual_seed(7)
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for b, h, kv, s, d, window in FLASH_BWD:
+            before = dict(flash_kernel.BACKWARD_LAUNCHES_BY_VARIANT)
             q, k, v = (t.requires_grad_() for t in
                        flash_inputs(b, h, kv, s, s, d, dtype, gen, True))
             d_out = torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
@@ -1975,22 +2076,45 @@ def check_flash_backward() -> float:
             errs = [float(((g.float() - w.float()).abs()
                            / w.float().abs().clamp(min=1.0)).max())
                     for g, w in zip(got, want)]
+            ran = {v: n - before[v]
+                   for v, n in flash_kernel.BACKWARD_LAUNCHES_BY_VARIANT.items()}
+            launched = ran == {v: int(v == flash_kernel.VARIANTS[dtype]) for v in ran}
             ok = (all(g.dtype == dtype and bool(torch.isfinite(g).all()) for g in got)
-                  and max(errs) <= FLASH_BWD_TOL[dtype])
+                  and max(errs) <= FLASH_BWD_TOL[dtype] and launched)
             emit({"phase": "flash_backward_vs_plain", "shape": [b, h, kv, s, s, d],
                   "window": window, "dtype": str(dtype),
                   "max_err_dq_dk_dv": errs, "tol_times_max_1_abs": FLASH_BWD_TOL[dtype],
-                  "ok": ok})
+                  "backward_launches_by_variant": ran, "ok": ok})
             if not ok:
                 raise SystemExit(f"flash backward differs at {(b, h, kv, s, d)} {dtype}")
             worst = max(worst, *errs)
     return worst
 
 
+# Calls of the explicit flash gradient on CUDA tensors: no training path
+# may make one (every one goes through the backward kernel).  chip_smoke's
+# own checks call the function it imported, not the module's attribute.
+EXPLICIT_FLASH_GRADIENT = {"on_cuda": 0}
+
+
+def watch_explicit_flash_gradient() -> None:
+    """Count every call of ``ref.attention_backward_reference`` made through
+    the module on CUDA tensors from here on."""
+    plain = flash_ref.attention_backward_reference
+
+    def counted(q, *args, **kwargs):
+        EXPLICIT_FLASH_GRADIENT["on_cuda"] += q.is_cuda
+        return plain(q, *args, **kwargs)
+
+    flash_ref.attention_backward_reference = counted
+
+
 def current_launches() -> dict[str, int]:
     return {**{name: module.LAUNCHES for name, module in KERNELS.items()},
             "rmsnorm_backward": rms_kernel.BACKWARD_LAUNCHES,
-            "rglru_backward": rglru_kernel.BACKWARD_LAUNCHES}
+            "rglru_backward": rglru_kernel.BACKWARD_LAUNCHES,
+            "flash_backward": flash_kernel.BACKWARD_LAUNCHES,
+            "explicit_flash_gradient_on_cuda": EXPLICIT_FLASH_GRADIENT["on_cuda"]}
 
 
 def train_trainer() -> None:
@@ -2040,7 +2164,9 @@ def train_trainer() -> None:
     ok = (out["restarts"] == 1 and bool(replay) and max(replay) == 0.0
           and max(deltas.values()) <= TRAINER_TOL
           and all(launches[k] > 0 for k in ("rmsnorm", "rmsnorm_backward", "flash",
-                                             "rglru", "rglru_backward"))
+                                             "flash_backward", "rglru", "rglru_backward"))
+          and launches["explicit_flash_gradient_on_cuda"] == 0
+          and flash_kernel.BACKWARD_LAUNCHES_BY_VARIANT["wgmma"] == 0
           and all(math.isfinite(m["loss"]) for m in card.metrics_history))
     emit({"phase": "train_trainer", "arch": cfg.name, "compute_dtype": cfg.compute_dtype,
           "deterministic_algorithms": True,
@@ -2060,11 +2186,12 @@ def train_trainer() -> None:
 def expected_train_launches(cfg) -> dict[str, int]:
     """Per train step with every block recomputed in the backward: each
     block's norms twice and final_norm once forward, each once backward;
-    one flash launch per attention-kind layer, twice; one RG-LRU scan per
-    rec layer, twice forward and once reversed for the backward.  An
-    encoder-decoder counts its encoder's blocks (two norms, one non-causal
-    flash launch), its decoder's (three norms, a causal and a cross flash
-    launch) and two final norms."""
+    one flash launch per attention-kind layer, twice, and one launch of the
+    flash backward kernel; one RG-LRU scan per rec layer, twice forward and
+    once reversed for the backward; no call of the explicit flash gradient
+    on the card.  An encoder-decoder counts its encoder's blocks (two
+    norms, one non-causal flash launch), its decoder's (three norms, a
+    causal and a cross flash launch) and two final norms."""
     if not cfg.remat:
         raise SystemExit(f"{cfg.name}: the expected counts assume remat")
     if cfg.encoder_layers:
@@ -2075,7 +2202,8 @@ def expected_train_launches(cfg) -> dict[str, int]:
         flash, rec = attention_layers(cfg), cfg.layer_counts().get("rec", 0)
     return {"mandelbrot": 0, "rmsnorm": 2 * blocks + finals, "flash": 2 * flash,
             "rglru": 3 * rec, "rmsnorm_backward": blocks + finals,
-            "rglru_backward": rec}
+            "rglru_backward": rec, "flash_backward": flash,
+            "explicit_flash_gradient_on_cuda": 0}
 
 
 def train_full() -> dict:
@@ -2120,6 +2248,7 @@ def train_full() -> dict:
                      "launches": {k: after[k] - before[k] for k in after}})
     launches = current_launches()
     flash_variants = dict(flash_kernel.LAUNCHES_BY_VARIANT)
+    backward_variants = dict(flash_kernel.BACKWARD_LAUNCHES_BY_VARIANT)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # One more step under the profiler: device time and where it goes.
     from torch.profiler import ProfilerActivity, profile
@@ -2148,6 +2277,7 @@ def train_full() -> dict:
           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3,
           "peak_memory_gb": peak_gb, "expected_launches_per_step": expected,
           "flash_launches_by_variant": flash_variants,
+          "flash_backward_launches_by_variant": backward_variants,
           "profiled_step_device_ms": device_ms, "profiled_step_kernels": kernels,
           "top_kernels": [[k[:80], us / 1e3] for k, us in sorted(
               kernel_us.items(), key=lambda kv: -kv[1])[:12]]})
@@ -2160,8 +2290,11 @@ def train_full() -> dict:
         if r["launches"] != expected:
             raise SystemExit(f"train step {r['step']}: launches {r['launches']} != "
                              f"expected {expected}")
-    if flash_variants != {"wgmma": expected["flash"] * TRAIN_STEPS, "f32": 0}:
-        raise SystemExit(f"bf16 training ran flash launches {flash_variants}")
+    if (flash_variants != {"wgmma": expected["flash"] * TRAIN_STEPS, "f32": 0}
+            or backward_variants != {"wgmma": expected["flash_backward"] * TRAIN_STEPS,
+                                     "f32": 0}):
+        raise SystemExit(f"bf16 training ran flash launches {flash_variants}, "
+                         f"backward {backward_variants}")
     del params, opt_state
     torch.cuda.empty_cache()
     return {"cfg": cfg, "launches": launches, "mean_step_ms": mean_ms,
@@ -2171,9 +2304,9 @@ def train_full() -> dict:
 
 def train_kernel_rows(train: dict, errs: dict, clock_hz: float) -> list[dict]:
     """The backward kernels at the training path's shapes, launch for
-    launch over the timed steps, beside their plain versions; and the
-    flash backward (explicit PyTorch, not yet a kernel) beside the forward
-    kernel and SDPA's backward on the same inputs."""
+    launch over the timed steps, beside their plain versions; the flash
+    backward also beside SDPA's backward on the same inputs and the forward
+    kernel."""
     cfg = train["cfg"]
     gen = torch.Generator("cuda").manual_seed(8)
     N, D, W = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.rnn_width or cfg.d_model
@@ -2223,42 +2356,109 @@ def train_kernel_rows(train: dict, errs: dict, clock_hz: float) -> list[dict]:
                                        if k not in ("name", "source", "replaces")}})
         rows.append(row)
 
-    # Flash: the explicit backward at recurrentgemma-2b's shape, every call
-    # of the timed steps, beside the forward kernel and SDPA's backward.
+    # Flash: the backward kernel at recurrentgemma-2b's shape, every call
+    # of the timed steps, beside the explicit gradient (its plain version),
+    # SDPA's backward on the same inputs and the forward kernel.
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    n_fl = train["launches"]["flash"] // 2
-    q, k, v = flash_inputs(TRAIN_BATCH, H, KV, TRAIN_SEQ, TRAIN_SEQ, hd, bf16, gen, True)
-    out = flash_kernel.flash_attention_cuda(q, k, v, causal=True, window=cfg.window_size)
-    d_out = torch.randn_like(out)
-    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
-    timed = {
-        "backward_ms": [lambda: attention_backward_reference(
-            q, k, v, out, d_out, causal=True, window=cfg.window_size)] * n_fl,
-        "forward_kernel_ms": [lambda: flash_kernel.flash_attention_cuda(
-            q, k, v, causal=True, window=cfg.window_size)] * n_fl,
-        "library_backward_ms": [lambda: torch.autograd.grad(
-            lib_out, (ql, kl, vl), d_out, retain_graph=True)] * n_fl,
-    }
+    n_fl = train["launches"]["flash_backward"]
+    shape = (TRAIN_BATCH, H, KV, TRAIN_SEQ, TRAIN_SEQ, hd, True, cfg.window_size)
+    work = flash_backward_work([shape] * n_fl, gen)
     times = {}
-    for key, fns in timed.items():
+    for key, fns in (("backward_ms", work["ms"]), ("plain_ms", work["plain_ms"]),
+                     ("library_backward_ms", work["library_ms"]),
+                     ("forward_kernel_ms", work["forward_ms"])):
         fns[0]()
         torch.cuda.synchronize()
         times[key], _paced = spun_device_ms(fns, clock_hz)
-    pairs = visible_pairs(TRAIN_SEQ, cfg.window_size) * TRAIN_BATCH
-    bwd_ops_ms = 10 * H * hd * pairs * n_fl / BF16_FLOPS_PER_S * 1e3
-    bwd_bytes_ms = (2 * TRAIN_SEQ * (3 * H + 4 * KV) * hd * TRAIN_BATCH * n_fl
-                    / HBM_BYTES_PER_S * 1e3)  # q, o, dO, dq; k, v, dk, dv in bf16
-    steps = train["launches"]["flash"] // expected_train_launches(cfg)["flash"]
-    emit({"phase": "train_flash_backward", "arch": cfg.name, "route": "pytorch",
-          "calls": n_fl, "shape": [TRAIN_BATCH, H, KV, TRAIN_SEQ, hd],
-          "window": cfg.window_size, **times,
-          "bound_ms": max(bwd_ops_ms, bwd_bytes_ms),
-          "bound_by": "operations" if bwd_ops_ms >= bwd_bytes_ms else "bytes",
+    steps = n_fl // expected_train_launches(cfg)["flash_backward"]
+    # Where a call's time goes: each of its launches, from the profiler.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in work["ms"]:
+            fn()
+        torch.cuda.synchronize()
+    kernel_us = device_events(prof)[0]
+    launch_ms = {part: sum(us for name, us in kernel_us.items() if f"bwd_{part}" in name)
+                 / 1e3 / n_fl for part in ("prologue", "dkdv", "reduce", "dq")}
+    # Against the explicit gradient in f32 from the same bf16 inputs: the
+    # kernel's error and the library's (SDPA's backward).
+    oracle = attention_backward_reference(*(t.float() for t in work["inputs"][shape][:5]),
+                                          causal=True, window=cfg.window_size)
+    errors = {"kernel": gradient_errors(work["ms"][0](), oracle),
+              "library": gradient_errors(work["library_ms"][0](), oracle)}
+    del oracle
+    emit({"phase": "train_flash_backward", "arch": cfg.name, "route": "cuda",
+          "calls": n_fl, "shape": list(shape[:4]) + [hd], "window": cfg.window_size,
+          **times, "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+          "ops_bound_ms": work["ops_ms"], "bytes_bound_ms": work["bytes_ms"],
           "backward_ms_per_step": times["backward_ms"] / steps,
+          "plain_ms_per_step": times["plain_ms"] / steps,
+          "ms_over_library": times["backward_ms"] / times["library_backward_ms"],
+          "share_of_bound": work["bound_ms"] / times["backward_ms"],
           "share_of_step_device_ms": times["backward_ms"] / steps / train["device_ms"],
-          "share_of_step_wall": times["backward_ms"] / steps / train["mean_step_ms"]})
+          "share_of_step_wall": times["backward_ms"] / steps / train["mean_step_ms"],
+          "profiled_ms_per_call_by_launch": launch_ms,
+          "max_err_dq_dk_dv_vs_explicit_f32": errors, "tol_times_max_1_abs":
+              FLASH_BWD_TOL[torch.bfloat16]})
+    rows.append({"name": "flash_attention_backward", "route": "cuda",
+                 "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+                 "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
+                 "launches": n_fl, "max_abs_err": errs["flash_backward"],
+                 "ms": times["backward_ms"], "plain_ms": times["plain_ms"],
+                 "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+                 "library_ms": times["library_backward_ms"]})
     return rows
+
+
+def flash_backward_work(shapes, gen) -> dict:
+    """The backward kernel's launches at ``shapes`` (b, h, kv, sq, skv, d,
+    causal, window), bf16 in the model's layout: the calls of the kernel,
+    of its plain version (the explicit gradient) and of SDPA's backward on
+    the same inputs (the forward kernel's too); and the bound of the work:
+    five products of 2 d FLOPs a visible (query, key) pair at the bf16
+    peak, against q, k, v, O, dO and lse read and dq, dk, dv written once."""
+    inputs, lib_graphs, masks = {}, {}, {}
+    flops = nbytes = 0
+    for shape in shapes:
+        b, h, kv, sq, skv, d, causal, window = shape
+        pairs = visible_pairs(sq, window) if causal else sq * skv
+        flops += 10 * b * h * d * pairs
+        nbytes += 2 * b * d * (4 * h * sq + 4 * kv * skv) + 4 * b * h * sq
+        if shape in inputs:
+            continue
+        inputs[shape] = flash_backward_inputs(*shape, torch.bfloat16, gen)
+        q, k, v, _out, _d_out, _lse = inputs[shape]
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_graphs[shape] = ((ql, kl, vl), flash_library(ql, kl, vl, causal, window, masks))
+
+    def kernel(shape):
+        q, k, v, out, d_out, lse = inputs[shape]
+        return lambda: flash_kernel.flash_attention_backward_cuda(
+            q, k, v, out, d_out, lse, causal=shape[6], window=shape[7])
+
+    def plain(shape):
+        q, k, v, out, d_out, _lse = inputs[shape]
+        return lambda: attention_backward_reference(q, k, v, out, d_out, causal=shape[6],
+                                                    window=shape[7])
+
+    def library(shape):
+        (leaves, lib_out), d_out = lib_graphs[shape], inputs[shape][4]
+        return lambda: torch.autograd.grad(lib_out, leaves, d_out, retain_graph=True)
+
+    def forward(shape):
+        q, k, v = inputs[shape][:3]
+        return lambda: flash_kernel.flash_attention_cuda(q, k, v, causal=shape[6],
+                                                         window=shape[7])
+
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"inputs": inputs, "ms": [kernel(s) for s in shapes],
+            "plain_ms": [plain(s) for s in shapes],
+            "library_ms": [library(s) for s in shapes],
+            "forward_ms": [forward(s) for s in shapes], "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 # ---------------------------------------------------------------------------
@@ -2287,30 +2487,34 @@ def serve_path(phase: str, serve: dict, scale_dtype=torch.bfloat16) -> dict:
 
 def train_path(phase: str, cfg, batch: int, seq: int, steps: int, launches: dict,
                enc_seq: int = 0) -> dict:
-    """A training path's forward kernel launches as shapes: every norm of a
-    step at [batch * seq, D] (the encoder's at [batch * enc_seq, D]) with an
-    f32 scale, every flash launch at the step's sequence lengths."""
+    """A training path's kernel launches as shapes: every norm of a step at
+    [batch * seq, D] (the encoder's at [batch * enc_seq, D]) with an f32
+    scale, every flash launch at the step's sequence lengths (each forward
+    twice, remat), and one flash backward launch per attention."""
     per = expected_train_launches(cfg)
     if cfg.encoder_layers:
         ne, nd = cfg.encoder_layers, cfg.num_layers
         norms = ([(batch * enc_seq, cfg.d_model)] * (4 * ne + 1)
                  + [(batch * seq, cfg.d_model)] * (6 * nd + 1))
-        flash = ([flash_launch(cfg, batch, enc_seq, enc_seq, False)] * (2 * ne)
-                 + [flash_launch(cfg, batch, seq, seq, True)] * (2 * nd)
-                 + [flash_launch(cfg, batch, seq, enc_seq, False)] * (2 * nd))
+        backward = ([flash_launch(cfg, batch, enc_seq, enc_seq, False)] * ne
+                    + [flash_launch(cfg, batch, seq, seq, True)] * nd
+                    + [flash_launch(cfg, batch, seq, enc_seq, False)] * nd)
     else:
         norms = [(batch * seq, cfg.d_model)] * per["rmsnorm"]
-        flash = [flash_launch(cfg, batch, seq, seq, True)] * per["flash"]
+        backward = [flash_launch(cfg, batch, seq, seq, True)] * per["flash_backward"]
     return {"phase": phase, "launches": launches, "rmsnorm": norms * steps,
-            "flash": flash * steps, "scale_dtype": torch.float32}
+            "flash": backward * 2 * steps, "flash_backward": backward * steps,
+            "scale_dtype": torch.float32}
 
 
 def check_counts(phase: str, launches: dict, expected: dict, variant: str) -> None:
-    """Launch counts equal to the expected ones, every flash launch through
-    ``variant``'s kernel."""
+    """Launch counts equal to the expected ones, every flash launch, forward
+    and backward, through ``variant``'s kernel."""
     got = {k: launches[k] for k in expected}
-    variants = dict(flash_kernel.LAUNCHES_BY_VARIANT)
-    want = {v: expected.get("flash", 0) if v == variant else 0 for v in variants}
+    variants = {"forward": dict(flash_kernel.LAUNCHES_BY_VARIANT),
+                "backward": dict(flash_kernel.BACKWARD_LAUNCHES_BY_VARIANT)}
+    want = {way: {v: expected.get(key, 0) if v == variant else 0 for v in variants[way]}
+            for way, key in (("forward", "flash"), ("backward", "flash_backward"))}
     if got != expected or variants != want:
         raise SystemExit(f"{phase}: launches {got} {variants} != expected {expected} "
                          f"all through {variant}")
@@ -2657,15 +2861,15 @@ def flash_library(q, k, v, causal: bool, window: int, masks: dict):
 
 
 def by_path(paths: list[dict]) -> dict[str, dict[str, dict]]:
-    """Each new path's RMS-norm and flash launches replayed, launch for
-    launch, at the shapes it gave them: {kernel: {path: {launches, ms,
-    bound_ms, bound_by, library_ms}}}, the library call (``F.rms_norm``;
-    SDPA) on the same inputs.  The replayed count must equal the count the
-    path's run made."""
+    """Each new path's RMS-norm, flash and flash backward launches replayed,
+    launch for launch, at the shapes it gave them: {kernel: {path:
+    {launches, ms, bound_ms, bound_by, library_ms}}}, the library call
+    (``F.rms_norm``; SDPA; SDPA's backward) on the same inputs.  The
+    replayed count must equal the count the path's run made."""
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     gen = torch.Generator("cuda").manual_seed(10)
     bf16 = torch.bfloat16
-    out: dict[str, dict] = {"rmsnorm": {}, "flash": {}}
+    out: dict[str, dict] = {"rmsnorm": {}, "flash": {}, "flash_backward": {}}
     for path in paths:
         rms_in, fl_in = {}, {}
         for n, d in path["rmsnorm"]:
@@ -2699,7 +2903,7 @@ def by_path(paths: list[dict]) -> dict[str, dict[str, dict]]:
         for kernel, shapes, make, library in (
                 ("rmsnorm", path["rmsnorm"], rms_call, rms_library),
                 ("flash", path["flash"], flash_call, flash_lib)):
-            if len(shapes) != path["launches"][kernel]:
+            if len(shapes) != path["launches"].get(kernel, 0):
                 raise SystemExit(f"{path['phase']}: replayed {len(shapes)} {kernel} "
                                  f"launches, the path made {path['launches'][kernel]}")
             if not shapes:
@@ -2717,6 +2921,24 @@ def by_path(paths: list[dict]) -> dict[str, dict[str, dict]]:
                                           "bound_by": bound_by, "library_ms": lib_ms,
                                           "library_host_paced": lib_paced}
         del rms_in, fl_in, weights, masks
+        shapes = path.get("flash_backward", [])
+        if len(shapes) != path["launches"].get("flash_backward", 0):
+            raise SystemExit(f"{path['phase']}: replayed {len(shapes)} flash backward "
+                             f"launches, the path made {path['launches']['flash_backward']}")
+        if shapes:
+            work = flash_backward_work(shapes, gen)
+            for fn in {s: fn for s, fn in zip(shapes, work["ms"])}.values():
+                fn()  # warm-up, every shape once
+            for fn in {s: fn for s, fn in zip(shapes, work["library_ms"])}.values():
+                fn()
+            torch.cuda.synchronize()
+            ms, paced = spun_device_ms(work["ms"], clock_hz)
+            lib_ms, lib_paced = spun_device_ms(work["library_ms"], clock_hz)
+            out["flash_backward"][path["phase"]] = {
+                "launches": len(shapes), "ms": ms, "host_paced": paced,
+                "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+                "library_ms": lib_ms, "library_host_paced": lib_paced}
+            del work
     emit({"phase": "by_path", **out})
     return out
 

@@ -349,6 +349,8 @@ class HostLoader:
         # knowing what a launcher is.
         self.relaunch = relaunch
         self._heals_used = 0
+        self._last_tick: float | None = None  # when the reaper last ran
+        self._awake_from: float | None = None  # the end of a host pause
         # Chaos hook: every accepted connection is passed through this
         # wrapper (identity when None) before its reader thread starts, so
         # a fault layer sees every frame of every node.
@@ -1154,6 +1156,23 @@ class HostLoader:
         return sum(j.items_collected for j in self._jobs.values())
 
     def _reap(self, now: float | None = None) -> None:
+        now = time.monotonic() if now is None else now
+        last, self._last_tick = self._last_tick, now
+        # The reaper runs every half beat.  A tick a whole beat late means
+        # the host itself was paused (descheduled on a loaded machine): the
+        # beats that reached its sockets meanwhile are still unread, and
+        # ticks queued during the pause may come back to back.  So reaping
+        # waits until the host has been awake for one beat interval, in
+        # which every live node beats.  A late tick does not restart a wait
+        # that is running, so ticks that keep coming late reap every other
+        # time and a node that did die is still declared dead.
+        interval = self.membership.monitor.interval_s
+        if self._awake_from is None and last is not None and now - last > interval:
+            self._awake_from = now
+        if self._awake_from is not None:
+            if now - self._awake_from < interval:
+                return
+            self._awake_from = None
         newly_dead = self.membership.reap(now, at_item=self._items_collected())
         for rec in newly_dead:
             self._on_node_death(rec)

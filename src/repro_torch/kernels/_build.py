@@ -2,8 +2,9 @@
 
 Each kernel is one ``.cu`` file with a plain C entry point.  ``nvcc``
 compiles it into a shared library under ``build/repro_torch/`` at the root
-of the checkout; the library's name carries a hash of the source and the
-flags, so an edited source builds anew and an unchanged one loads at once.
+of the checkout; the library's name carries a hash of the source, of the
+``.cuh`` headers beside it and of the flags, so an edited source or header
+builds anew and an unchanged one loads at once.
 Nothing is built when a module is imported.  Different sources build in
 parallel when several threads load them at once.
 """
@@ -39,8 +40,9 @@ def nvcc_path() -> str:
 
 def library_path(source: Path, flags: tuple[str, ...] = ()) -> Path:
     """Where ``source`` built with ``flags`` (beside ``NVCC_FLAGS``) lives."""
+    headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS + flags).encode()
+        source.read_bytes() + headers + " ".join(NVCC_FLAGS + flags).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 

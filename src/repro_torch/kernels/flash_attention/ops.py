@@ -7,17 +7,20 @@ falls back from one to the other.  The kernel masks ragged Sq and Skv
 itself, so no padding is needed.
 
 Where a gradient is wanted, the call goes through
-``FlashAttentionFunction``: its forward is the path above and its backward
-the explicit gradient ``attention_backward_reference`` in PyTorch on either
-device (P recomputed under the mask).  A hand-written backward kernel is
-queued work (ROADMAP queue 2).  Without autograd (serving), the forward is
-called directly.
+``FlashAttentionFunction``: its forward also returns each query row's
+log-sum-exp (the plain ``attention_lse_reference`` on CPU tensors, the
+forward kernel's extra output on CUDA ones), and its backward rebuilds P
+from it: ``flash_backward_reference`` on CPU tensors, the backward kernel
+(``flash_attention_backward_cuda``) on CUDA ones.  Without autograd
+(serving), the forward is called directly and writes no log-sum-exp.
 
-The forward is a ``torch.library`` custom op, ``repro_torch::flash_attention``,
-with a fake impl (shapes and dtypes only) and a FLOP formula, so a
-fake-tensor trace (the dry-run) passes through it without arithmetic or a
-launch and ``FlopCounterMode``'s registry counts it as attention.  A
-DTensor never reaches it: the model calls it on local shards.
+The three are ``torch.library`` custom ops (``repro_torch::flash_attention``,
+``repro_torch::flash_attention_lse``, ``repro_torch::flash_attention_backward``)
+with fake impls (shapes and dtypes only) and FLOP formulas, so a
+fake-tensor trace (the dry-run) passes through them without arithmetic or
+a launch and ``FlopCounterMode``'s registry counts them as attention and
+its gradient.  A DTensor never reaches them: the model calls them on local
+shards.
 """
 
 from __future__ import annotations
@@ -26,10 +29,15 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _shard
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_backward_cuda,
+    flash_attention_cuda,
+    tma_layout_error,
+)
 from repro_torch.kernels.flash_attention.ref import (
-    attention_backward_reference,
+    attention_lse_reference,
     attention_reference,
+    flash_backward_reference,
 )
 
 
@@ -55,7 +63,6 @@ def _forward_fake(q, k, v, causal, window):
     return torch.empty_like(q)
 
 
-@register_flop_formula(torch.ops.repro_torch.flash_attention)
 def _flash_flops(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
     """QK^T and PV over every (query, key) pair, as the library counts
     ``scaled_dot_product_attention`` (the causal mask is not subtracted)."""
@@ -64,19 +71,91 @@ def _flash_flops(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
     return 4 * B * H * Sq * Skv * D
 
 
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _forward_lse_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                      window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): the forward and each query row's log-sum-exp, f32
+    [B, H, Sq]."""
+    if _on_cpu(q, k, v):
+        return (_forward_impl(q, k, v, causal, window),
+                attention_lse_reference(q, k, causal=causal, window=window))
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window, lse=lse), lse
+
+
+_forward_lse = torch.library.custom_op("repro_torch::flash_attention_lse",
+                                       _forward_lse_impl, mutates_args=())
+
+
+@_forward_lse.register_fake
+def _forward_lse_fake(q, k, v, causal, window):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+register_flop_formula([torch.ops.repro_torch.flash_attention,
+                       torch.ops.repro_torch.flash_attention_lse])(_flash_flops)
+
+
+def _backward_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                   d_out: torch.Tensor, lse: torch.Tensor, causal: bool,
+                   window: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the dtypes of q, k and v."""
+    if _on_cpu(q, k, v, out, d_out, lse):
+        return flash_backward_reference(q, k, v, out, d_out, lse, causal=causal,
+                                        window=window)
+    return flash_attention_backward_cuda(q, k, v, out, d_out, lse, causal=causal,
+                                         window=window)
+
+
+_backward = torch.library.custom_op("repro_torch::flash_attention_backward",
+                                    _backward_impl, mutates_args=())
+
+
+@_backward.register_fake
+def _backward_fake(q, k, v, out, d_out, lse, causal, window):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
+def _flash_backward_flops(q_shape, k_shape, *args, **kwargs) -> int:
+    """Five products over every (query, key) pair (S, dP, dV, dQ and dK),
+    as the library counts SDPA's backward (``sdpa_backward_flop_count``)."""
+    B, H, Sq, D = q_shape
+    Skv = k_shape[2]
+    return 10 * B * H * Sq * Skv * D
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """The incoming gradient as the backward kernel reads it: autograd picks
+    its layout (it can be expanded, or strided off the 16-byte rule), so
+    one the kernel cannot read in place is made contiguous.  The base's
+    alignment is judged from its offset in its allocation (allocations are
+    aligned far beyond 16 bytes), so a fake tensor, which has no address,
+    is judged too."""
+    if t.device.type == "cpu":
+        return t
+    offset = t.storage_offset() * t.element_size()
+    if t.stride(-1) == 1 and (t.dtype != torch.bfloat16 or tma_layout_error(
+            t.shape, t.stride(), t.dtype, offset) is None):
+        return t
+    return t.contiguous()
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out = _forward(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _forward_lse(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = attention_backward_reference(
-            q, k, v, out, d_out, causal=ctx.causal, window=ctx.window)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, out, _tma_ready(d_out), lse, ctx.causal, ctx.window)
         return dq, dk, dv, None, None
 
 

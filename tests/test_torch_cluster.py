@@ -32,6 +32,7 @@ from repro_torch import quickstart as port_qs
 from repro_torch.cluster import wire as port_wire
 from repro_torch.cluster.deploy.inprocess import InProcessLauncher
 from repro_torch.cluster.deploy.local import SRC_DIR, _child_env, torch_node_env
+from repro_torch.cluster.host_loader import HostLoader
 from repro_torch.cluster.membership import DEAD, DONE, Membership
 from repro_torch.cluster.netchannels import ChannelClosed, ChannelMux
 from repro_torch.cluster.wire import (
@@ -166,6 +167,67 @@ def test_membership_heartbeat_threshold_declares_death():
     assert m.reap(now=0.8) == []
     m.mark_done("node1", {"items": 5})
     assert m.finished()
+
+
+def _paused_host(now: float = 0.0) -> HostLoader:
+    """A host with two registered nodes, liveness 4 beats of 0.1 s."""
+    hl = HostLoader(heartbeat=HeartbeatMonitor(interval_s=0.1, misses=4), pool_nodes=2)
+    hl.membership.register("node0", "127.0.0.1:1", now=now)
+    hl.membership.register("node1", "127.0.0.1:2", now=now)
+    return hl
+
+
+def test_host_pause_is_not_node_silence():
+    """The host's reaper runs every half beat; when it runs a whole beat
+    late, the host itself was paused (a loaded machine descheduled it) and
+    its nodes' beats wait unread in its sockets, while ticks queued in the
+    pause may come back to back.  Reaping waits one beat interval: node0,
+    whose beat is read just after the pause, survives a 1 s pause of a
+    0.4 s threshold; node1, silent from 0.15 s, is declared dead once the
+    wait is over, with the silence it really kept."""
+    hl = _paused_host()
+    m = hl.membership
+    for t in (0.05, 0.10, 0.15):
+        m.beat("node0", now=t)
+        m.beat("node1", now=t)
+        hl._reap(now=t)
+    hl._reap(now=1.15)  # the first tick after a pause from 0.15 s
+    hl._reap(now=1.15)  # a second tick, queued in the pause
+    assert m.nodes["node0"].alive and m.nodes["node1"].alive
+    assert m.nodes["node0"].last_beat == m.nodes["node1"].last_beat == 0.15
+    m.beat("node0", now=1.18)  # its beat, read once the host runs again
+    hl._reap(now=1.20)
+    assert m.nodes["node0"].alive and m.nodes["node1"].alive
+    hl._reap(now=1.25)
+    assert m.nodes["node0"].alive and m.nodes["node1"].state == DEAD
+    assert hl.stats.deaths_detected == 1
+    assert m.failures[-1].node_id == "node1"
+    assert m.failures[-1].detect_latency_s == pytest.approx(1.10)
+    for i in range(1, 11):  # the healthy node goes on beating and living
+        t = 1.25 + 0.05 * i
+        m.beat("node0", now=t)
+        hl._reap(now=t)
+    assert m.nodes["node0"].alive and hl.stats.deaths_detected == 1
+
+
+@pytest.mark.parametrize("gap", [0.15, 0.3])
+def test_late_ticks_still_detect_a_dead_node(gap):
+    """Ticks that keep coming late (every `gap` s against the reaper's 0.05)
+    reap every other time: node1, dead from the start, is declared
+    dead within two gaps of its 0.4 s threshold, and node0, which beats
+    before every tick, is never declared dead."""
+    hl = _paused_host(now=1.0)
+    m = hl.membership
+    t = 1.0
+    while m.nodes["node1"].alive and t < 6.0:
+        t = round(t + gap, 6)
+        m.beat("node0", now=t)
+        hl._reap(now=t)
+        assert m.nodes["node0"].alive
+    assert m.nodes["node1"].state == DEAD
+    assert 0.4 < t - 1.0 <= 0.4 + 2 * gap
+    assert hl.stats.deaths_detected == 1
+    assert m.failures[-1].detect_latency_s == pytest.approx(t - 1.0)
 
 
 # ---------------------------------------------------------------------------
