@@ -393,7 +393,8 @@ def nvidia_smi(query: str) -> str:
 
 def ptxas_report(source: Path, flags: tuple[str, ...] = ()) -> list[str]:
     """What ``ptxas -v`` says of the kernels of ``source``: registers, shared
-    memory and spills, built with the flags of the library the run loads."""
+    memory, spills and any wgmma pipeline it serialised, built with the
+    flags of the library the run loads."""
     cubin = _build.BUILD_DIR / f"{source.stem}-ptxas.cubin"
     cubin.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run(
@@ -402,7 +403,8 @@ def ptxas_report(source: Path, flags: tuple[str, ...] = ()) -> list[str]:
          "-o", str(cubin), str(source)],
         check=True, capture_output=True, text=True)
     return [line.split("ptxas info    : ")[-1] for line in proc.stderr.splitlines()
-            if "registers" in line or "spill" in line or "Compiling entry" in line]
+            if any(w in line for w in ("registers", "spill", "Compiling entry",
+                                       "Performance Loss"))]
 
 
 def event_ms(fn, reps: int) -> list[float]:
@@ -1945,8 +1947,8 @@ def check_rmsnorm_backward() -> float:
                   "dscale_max_abs_err": float(ds_err.max()),
                   "dscale_max_err_over_l1": float((ds_err / l1.clamp(min=1e-30)).max()),
                   "dscale_ok": ds_ok, "repeat_bit_equal": same,
-                  "blocks": rms_kernel.backward_blocks(
-                      n, rms_kernel.launch_plan(d, xdt).rows_per_block),
+                  "plan": rms_kernel.backward_plan(d, xdt)._asdict(),
+                  "blocks": rms_kernel.backward_blocks(n, rms_kernel.backward_plan(d, xdt)),
                   "ok": ok})
             if not ok:
                 raise SystemExit(f"rmsnorm backward differs at {n}x{d} {xdt}/{sdt}")
@@ -2302,6 +2304,35 @@ def train_full() -> dict:
             "peak_memory_gb": peak_gb}
 
 
+def rms_backward_library(x, scale, g):
+    """PyTorch's one call for the RMS-norm gradient on the kernel's inputs:
+    ``aten._fused_rms_norm_backward`` with weight = 1 + scale in x's type
+    and the rstd of ``aten._fused_rms_norm``, taken once, outside the
+    timing."""
+    D = x.shape[1]
+    weight = (1.0 + scale.float()).to(x.dtype)
+    _out, rstd = torch.ops.aten._fused_rms_norm(x, [D], weight, 1e-6)
+    return lambda: torch.ops.aten._fused_rms_norm_backward(g, x, [D], rstd, weight,
+                                                           [True, True])
+
+
+def profiled_launch_ms(calls) -> dict[str, float]:
+    """Device ms per call of each kernel that ``calls`` launch, by the
+    kernel's name (its template arguments kept, its parameters dropped),
+    from the profiler's raw events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for name, us in device_events(prof)[0].items():
+        short = name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
+        out[short] = out.get(short, 0.0) + us / 1e3 / len(calls)
+    return out
+
+
 def train_kernel_rows(train: dict, errs: dict, clock_hz: float) -> list[dict]:
     """The backward kernels at the training path's shapes, launch for
     launch over the timed steps, beside their plain versions; the flash
@@ -2326,34 +2357,52 @@ def train_kernel_rows(train: dict, errs: dict, clock_hz: float) -> list[dict]:
     k_rg = train["launches"]["rglru_backward"]
     rg_bytes = 5 * TRAIN_BATCH * TRAIN_SEQ * W * 4 * k_rg  # a, h, gh in; da, db out
     rg_ops = 4 * TRAIN_BATCH * TRAIN_SEQ * W * k_rg
-    for name, src, replaces, calls, plain, nbytes, ops, err in (
+    # The RMS-norm gradient has one PyTorch call; the RG-LRU's has none.
+    rms_library = rms_backward_library(x, scale, g)
+    for name, src, replaces, calls, plain, library, nbytes, ops, err in (
         ("rmsnorm_backward", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
          "src/repro/kernels/rmsnorm/kernel.py:21",
          [lambda: rms_kernel.rms_norm_bwd_cuda(x, scale, g)] * n,
          [lambda: rms_norm_backward_reference(x, scale, g)] * n,
-         rms_bytes, rms_ops, errs["rmsnorm_backward"]),
+         [rms_library] * n, rms_bytes, rms_ops, errs["rmsnorm_backward"]),
         ("rglru_scan_backward", "src/repro_torch/kernels/rglru/csrc/rglru.cu",
          "src/repro/kernels/rglru/kernel.py:32",
          [lambda: rglru_kernel.rglru_scan_backward_cuda(a, h, None, gh, g_last)] * k_rg,
          [lambda: rglru_scan_backward_reference(a, h, None, gh, g_last)] * k_rg,
-         rg_bytes, rg_ops, errs["rglru_backward"]),
+         None, rg_bytes, rg_ops, errs["rglru_backward"]),
     ):
         calls[0](), plain[0]()  # warm-up
+        if library:
+            library[0]()
         torch.cuda.synchronize()
         ms, paced = spun_device_ms(calls, clock_hz)
         plain_ms, plain_paced = spun_device_ms(plain, clock_hz)
+        lib_ms, lib_paced = spun_device_ms(library, clock_hz) if library else (None, False)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_FLOPS_PER_S * 1e3
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": len(calls), "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-               "library_ms": None,  # no one PyTorch call computes this gradient
-               "host_paced": [k for k, p in (("ms", paced), ("plain_ms", plain_paced))
-                              if p]}
+               "library_ms": lib_ms,
+               "host_paced": [k for k, p in (("ms", paced), ("plain_ms", plain_paced),
+                                             ("library_ms", lib_paced)) if p]}
+        extra = {}
+        if library:
+            # Where a call's time goes, launch by launch, the kernel's and
+            # the library op's (its kernel names show whether it is fused).
+            by_launch = profiled_launch_ms(calls)
+            extra = {"library_op": "torch.ops.aten._fused_rms_norm_backward",
+                     "share_of_bound": row["bound_ms"] / ms,
+                     "ms_over_library": ms / lib_ms,
+                     "plan": rms_kernel.backward_plan(D, x.dtype)._asdict(),
+                     "blocks": rms_kernel.backward_blocks(N, rms_kernel.backward_plan(D, x.dtype)),
+                     "profiled_ms_per_call_by_launch": by_launch,
+                     "library_kernels_ms_per_call": profiled_launch_ms(library)}
         emit({"phase": "kernel_time", "kernel": name, "arch": cfg.name,
               "path": "train_full", **{k: v for k, v in row.items()
-                                       if k not in ("name", "source", "replaces")}})
+                                       if k not in ("name", "source", "replaces")},
+              **extra})
         rows.append(row)
 
     # Flash: the backward kernel at recurrentgemma-2b's shape, every call
@@ -2372,15 +2421,7 @@ def train_kernel_rows(train: dict, errs: dict, clock_hz: float) -> list[dict]:
         times[key], _paced = spun_device_ms(fns, clock_hz)
     steps = n_fl // expected_train_launches(cfg)["flash_backward"]
     # Where a call's time goes: each of its launches, from the profiler.
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for fn in work["ms"]:
-            fn()
-        torch.cuda.synchronize()
-    kernel_us = device_events(prof)[0]
-    launch_ms = {part: sum(us for name, us in kernel_us.items() if f"bwd_{part}" in name)
-                 / 1e3 / n_fl for part in ("prologue", "dkdv", "reduce", "dq")}
+    launch_ms = profiled_launch_ms(work["ms"])
     # Against the explicit gradient in f32 from the same bf16 inputs: the
     # kernel's error and the library's (SDPA's backward).
     oracle = attention_backward_reference(*(t.float() for t in work["inputs"][shape][:5]),

@@ -17,7 +17,7 @@
 // Launches, in order on the caller's stream:
 //  1. the prologue: one warp a query row writes Delta and the row's lse
 //     (times log2 e for the wgmma variant, which works in base 2) into
-//     [B, H, Sq_pad] f32, Sq_pad = Sq rounded up to 64.  Rows past Sq get
+//     [B, H, Sq_pad] f32, Sq_pad = Sq rounded up to 128.  Rows past Sq get
 //     lse = +inf and Delta = 0, so P = 0 there without a mask, and the
 //     dK/dV pass copies a tile's lse and Delta with one 1-D bulk copy that
 //     never reads past the buffer.  A prologue reads O and dO once; fused
@@ -30,20 +30,22 @@
 //     a KV head among `split` blocks when the grid of key tiles x KV heads
 //     would have fewer than 264 blocks, two an SM of a 132-SM H100
 //     (recurrentgemma-2b: 32 key tiles of one KV head; G = 10 gives 320
-//     blocks).  Each block writes f32
-//     partial sums, and this launch adds them in split order, scales dK and
-//     writes both in the caller's layout.
+//     blocks).  Each block writes f32 partial sums, and this launch adds
+//     them in split order, scales dK and writes both in the caller's
+//     layout (0.015 ms a call at recurrentgemma-2b's shape; run by the last
+//     of a key tile's blocks, or by extra blocks of the dQ pass's grid, the
+//     sum made the call slower).
 //  4. the dQ pass: one block per query tile, head and batch row; it walks
 //     the visible key tiles as the forward does, dQ in registers.
 // No atomics: every sum has one order fixed by the shapes (the split too),
 // so a replayed call gives the same bits, on any card.
 //
 // What bounds it: operations.  Five products of 2 D FLOPs per (query, key)
-// pair are the least work (10 B H Sq Skv D where nothing is masked); the two
-// passes compute S and dP twice, and the dV and dK products run twice (the
-// high and low bf16 halves of P and dS, below): nine (at D = 256, where the
-// dK/dV pass's two warpgroups both compute S^T and dP^T, eleven).  The
-// least time is the five at 989 TFLOP/s, over the pairs the mask leaves.
+// pair are the least work (10 B H Sq Skv D where nothing is masked).  This
+// kernel does nine: the dK/dV pass computes S and dP, and the dV and dK
+// products twice (the high and low bf16 halves of P and dS, below); the dQ
+// pass computes S and dP again, and dQ.  The least time is the five at 989
+// TFLOP/s, over the pairs the mask leaves.
 //
 // Precision: P and dS enter the dV and dK products as a bf16 high part
 // plus the bf16 of the rest, so the products see them to 16 bits.  A key's
@@ -55,43 +57,63 @@
 // both errors against the explicit gradient in f32).  dQ sums one head's
 // keys and keeps one bf16 dS.
 //
-// bfloat16 (training): wgmma on tiles fed by TMA, as the forward.  A
-// producer warpgroup (one thread) issues every copy; consumer warpgroups
-// wait on "full" mbarriers and release stages through "empty" ones; the
-// producer gives its registers to them with setmaxnreg (232 / 40).
-//   dK/dV pass, per query tile of BM rows (Q, dO, lse and Delta one stage
-//   of the ring; K and V of the block loaded once):
-//     S^T = K Q^T and dP^T = V dO^T   wgmma m64nBMk16, both K-major;
-//     P^T, dS^T from S^T and dP^T in registers (masked only on a tile that
-//     the diagonal, the window's edge, Skv or Sq cuts), packed to bf16 A
-//     fragments in place (high and low halves), as the forward packs P;
-//     dV += P^T dO, dK += dS^T Q      wgmma m64nCk16 twice (the halves), A
-//     from registers, B MN-major through the descriptor's transpose bit
-//     (nothing is copied transposed).
+// bfloat16 (training): wgmma on tiles fed by TMA, as the forward.  One
+// thread issues every copy; consumer warpgroups wait on "full" mbarriers and
+// release stages through "empty" ones.  Register budget: ptxas compiles a
+// kernel of three warpgroups (a producer beside two consumers) for 168
+// registers a thread, whatever setmaxnreg grants later (a 288-thread block
+// of 224 registers is refused at launch); two warpgroups alone may use 255.
+//   dK/dV pass at D >= 128, 64 keys a block, per query tile of BM rows (Q,
+//   dO, lse and Delta one stage of the ring; K and V of the block loaded
+//   once).  The two warpgroups split the work by role:
+//     warpgroup 0: S^T = K Q^T (wgmma m64nBMk16, both K-major), P^T in
+//       place (masked only on a tile that the diagonal, the window's edge,
+//       Skv or Sq cuts), written as bf16 high and low tiles in shared
+//       memory, then dV += P^T dO (m64nDk16, both from shared memory, dO
+//       the MN-major B through the descriptor's transpose bit: nothing is
+//       copied transposed);
+//     warpgroup 1: dP^T = V dO^T, then, with P^T from warpgroup 0's tiles,
+//       dS^T = P^T (dP^T - Delta) into its own tiles, then dK += dS^T Q.
+//   Each warpgroup owns all D columns of its one accumulator (at D = 256,
+//   128 registers a thread), so nothing is computed twice: the first
+//   version split D between the warpgroups, and each computed the whole
+//   S^T and dP^T, eleven products' work where this does nine.  A tile's dV
+//   (dK) product is left running while the warpgroup issues the next tile's
+//   S^T (dP^T), and warpgroup 1 trails warpgroup 0 by the exponentials, so
+//   one's softmax runs under the other's products.  The A operands come
+//   from shared memory, not registers, so that a thread's live state is its
+//   accumulator and one tile of scores.  At D = 256 even that needs more
+//   than 168 registers (ptxas serialised the wgmma pipeline for want of
+//   them), so the block is the two warpgroups alone, 256 threads, and the
+//   first thread of warpgroup 1 issues the copies, each item's as soon as
+//   both warpgroups release the stage the previous one held; at D = 128 a
+//   producer warpgroup issues them (issued from a consumer thread, the
+//   copies made the pass slower there).
+//   dK/dV pass at D <= 64 (KVOwnShape), 128 keys a block: each warpgroup
+//   owns 64 of them and computes S^T and dP^T for them, P^T and dS^T packed
+//   in place into A fragments (high and low halves) in registers for dV +=
+//   P^T dO and dK += dS^T Q (m64nDk16 from registers).  A tile's products
+//   are short at these widths, and the role split's hand-over of P^T cost
+//   more than it saved (whole calls were slower at D = 64 with it).
 //   dQ pass, per key tile of 64 keys (the block's Q and dO loaded once):
 //     S = Q K^T, dP = dO V^T          wgmma m64n64k16;
-//     dQ += dS K                      wgmma m64nDk16, K MN-major.
-// Tile shapes, stages and registers a thread (f32 accumulators; the A
-// fragments add BM / 2 in the dK/dV pass, BN / 4 in the dQ pass):
-//   D   | dK/dV: keys/block  BM  stages  regs (dK+dV, S^T+dP^T) | dQ: rows/block  stages  regs (dQ, S+dP)
-//   16  |        128         64    4     16, 64                 |     128           4     8, 64
-//   32  |        128         64    4     32, 64                 |     128           4     16, 64
-//   64  |        128         64    4     64, 64                 |     128           4     32, 64
-//   128 |        128         32    4     128, 32                |     128           4     64, 64
-//   256 |         64         32    4     128, 32 (D split in    |      64           2     128, 64
-//       |                                 two halves, one a warpgroup)
-// D = 256 is the hard case: dK and dV of 64 keys are 2 x 64 x 256 f32 =
-// 128 KB, 256 registers a thread for one warpgroup.  So at D = 256 the two
-// consumer warpgroups share the block's 64 keys and each owns half of dK's
-// and dV's columns (128 registers a thread), over query tiles of 32 rows;
-// each computes the whole S^T and dP^T (the price of the split).  Shared
-// memory: K and V of the block, then each stage's Q, dO, lse and Delta,
-// within 227 KB (194 KB at D = 256); the dQ pass holds Q and dO (64 KB at
-// D = 256) and a ring of two K/V stages.
-// The kernels are compiled for 384 threads, so ptxas allots 168 registers
-// a thread; at D = 128 and 256 the dK/dV pass spills a few hundred bytes
-// (the build phase prints ptxas's report).  Tensor maps are 4-D (D, S,
-// heads, B) with the caller's strides, so the model's [B, S, H, D] views
+//     dQ += dS K                      wgmma m64nDk16, K MN-major;
+//   one consumer warpgroup at D = 256 (64 rows a block), two below (128
+//   rows).
+// Tile shapes, stages and registers a thread (f32 accumulators):
+//   D   | dK/dV: keys  BM  stages  threads  regs (accumulators, scores)    | dQ: rows  stages  regs (dQ, S+dP)
+//   16  |        128   64    4      384     16, 64 (+ 64 of A fragments)  |     128     4     8, 64
+//   32  |        128   64    4      384     32, 64 (+ 64)                 |     128     4     16, 64
+//   64  |        128   64    4      384     64, 64 (+ 64)                 |     128     4     32, 64
+//   128 |         64   64    4      384     64, 32                        |     128     4     64, 64
+//   256 |         64   64    2      256     128, 32                       |      64     2     128, 64
+// ptxas (chip_smoke.py's build phase prints it): the dK/dV pass takes 231
+// registers a thread at D = 256 and 168 at D = 128, the dQ pass 219 and
+// 168, with no spills and no serialised wgmma pipeline.
+// Shared memory: K and V of the block, each stage's Q, dO, lse and Delta,
+// and at D >= 128 the four A tiles, within 227 KB (226 KB at D = 256); the
+// dQ pass holds Q and dO and a ring of K/V stages.  Tensor maps are 4-D (D,
+// S, heads, B) with the caller's strides, so the model's [B, S, H, D] views
 // are read in place; a ragged tile is zero-filled by the TMA unit and
 // masked.  Tiles that none of a warpgroup's rows or keys can see are
 // passed on uncomputed.
@@ -107,11 +129,13 @@
 // return cudaGetLastError() (or, for a tensor map that libcuda refuses, the
 // negated CUresult).
 
+#include <type_traits>
+
 #include "flash_common.cuh"
 
 namespace {
 
-constexpr int kRowPad = 64;  // Sq_pad: Sq rounded up to this
+constexpr int kRowPad = 128;  // Sq_pad: Sq rounded up to this (a multiple of every BM)
 
 struct BwdArgs {
   const void *q, *k, *v, *o, *d_o;
@@ -124,6 +148,7 @@ struct BwdArgs {
   int causal, window;
   float scale;
   int split;
+  int keys;  // the keys a block of the dK/dV pass owns, as the caller's split assumed
   cudaStream_t stream;
 };
 
@@ -444,6 +469,7 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float
 template <int D>
 int bwd_f32(const BwdArgs& a) {
   using Sh = FShape<D>;
+  if (a.keys != kFB) return int(cudaErrorInvalidValue);
   int err = launch_prologue<float>(a, 1.f);
   if (err != 0) return err;
   cudaError_t cerr = cudaFuncSetAttribute(bwd_dkdv_f32<D>,
@@ -490,41 +516,112 @@ struct Boxes {
   static constexpr int kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
 };
 
-// dK/dV pass: two consumer warpgroups and a producer.
+// d[64 x N] += A[64 x 16] B[16 x N], f32 += bf16 x bf16, A and B from shared
+// memory, A K-major and B MN-major (the descriptor's transpose bit).
+template <int N>
+__device__ void wgmma_ss_tb(float* d, uint64_t a, uint64_t b);
+
+template <> __device__ __forceinline__ void wgmma_ss_tb<128>(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <> __device__ __forceinline__ void wgmma_ss_tb<256>(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// dK/dV pass: 64 keys a block.  Warpgroup 0 computes S^T and owns dV,
+// warpgroup 1 computes dP^T and owns dK.  P^T and dS^T go through shared
+// memory as bf16 tiles (a high part and the bf16 of the rest), in the
+// layout the TMA unit gives Q (rows of 64 columns, 128-byte swizzle): they
+// are the A operands of the dV and dK products, and warpgroup 1 reads P^T
+// from there.  At D = 256 the block is the two warpgroups alone, 256
+// threads, so ptxas may give a thread 255 registers (beside a producer
+// warpgroup it holds every thread to 168, and at D = 256 that serialised
+// the wgmma pipeline), and the first thread of warpgroup 1, which trails
+// warpgroup 0 by the exponentials, issues the copies.  Below D = 256 the
+// accumulators fit in 168 registers and a producer warpgroup issues them
+// (issued from a consumer thread, the copies made the pass slower there).
 template <int D>
 struct KVShape : Boxes<D> {
-  static constexpr bool kSplitD = D == 256;          // both on the same 64 keys
-  static constexpr int kKeys = kSplitD ? 64 : 128;   // keys per block
-  static constexpr int kCols = kSplitD ? D / 2 : D;  // dK, dV columns per warpgroup
-  static constexpr int kBM = D >= 128 ? 32 : 64;     // queries per tile
-  static constexpr int kThreads = 3 * kWgThreads;
+  static constexpr int kKeys = 64;                   // keys per block: one wgmma M
+  static constexpr bool kProducerWG = D < 256;
+  static constexpr int kThreads = (kProducerWG ? 3 : 2) * kWgThreads;
   static constexpr int kKVBytes = kKeys * D * 2;     // the K tile, or the V tile
+  static constexpr int kRoom = kSmemLimit - 2048 - 2 * kKVBytes;
+  static constexpr int stage_bytes(int bm) { return 2 * bm * D * 2 + 2 * bm * 4; }
+  // Queries per tile: 128 where two stages fit beside the four A tiles.
+  static constexpr int kBM = kRoom - 4 * kKeys * 128 * 2 >= 2 * stage_bytes(128) ? 128 : 64;
   static constexpr int kQBytes = kBM * D * 2;        // a Q tile, or a dO tile
   static constexpr int kRowF32 = kBM * 4;            // a tile's lse, or its Delta
-  static constexpr int kStageBytes = 2 * kQBytes + 2 * kRowF32;
-  static constexpr int kFit = (kSmemLimit - 2048 - 2 * kKVBytes) / kStageBytes;
+  static constexpr int kStageBytes = stage_bytes(kBM);
+  static constexpr int kATile = kKeys * kBM * 2;     // P^T or dS^T, high or low part
+  static constexpr int kFit = (kRoom - 4 * kATile) / kStageBytes;
   static constexpr int kStages = kFit < 4 ? kFit : 4;
-  static constexpr size_t kSmemBytes =
-      1024 + 2 * size_t(kKVBytes) + size_t(kStages) * kStageBytes + 8 * (1 + 2 * kStages);
+  static constexpr size_t kSmemBytes = 1024 + 2 * size_t(kKVBytes) +
+                                       size_t(kStages) * kStageBytes + 4 * size_t(kATile) +
+                                       8 * (1 + 2 * kStages + 2);
   static_assert(kStages >= 2 && kSmemBytes <= kSmemLimit, "tiles do not fit");
   static_assert(kRowPad % kBM == 0, "a query tile never crosses Sq_pad");
 };
 
-// dQ pass: NC consumer warpgroups of 64 query rows each, and a producer.
-template <int D>
-struct QShape : Boxes<D> {
-  static constexpr int kNC = D == 256 ? 1 : 2;
-  static constexpr int kBM = 64 * kNC;               // query rows per block
-  static constexpr int kThreads = kWgThreads * (kNC + 1);
-  static constexpr int kBN = 64;                     // keys per tile
-  static constexpr int kQBytes = kBM * D * 2;        // Q, or dO
-  static constexpr int kTileBytes = kBN * D * 2;     // one K or V tile
-  static constexpr int kFit = (kSmemLimit - 2048 - 2 * kQBytes) / (2 * kTileBytes);
-  static constexpr int kStages = kFit < 4 ? kFit : 4;
-  static constexpr size_t kSmemBytes =
-      1024 + 2 * size_t(kQBytes) + size_t(2 * kStages) * kTileBytes + 8 * (1 + 4 * kStages);
-  static_assert(kStages >= 2 && kSmemBytes <= kSmemLimit, "tiles do not fit");
-};
+// Byte offset of (row, col) in a bf16 A tile of 64 rows: boxes of 64
+// columns, 128-byte rows, 16-byte chunks swizzled by the row (as TMA's
+// 128-byte swizzle and the wgmma descriptor's layout 1 place them).
+__device__ __forceinline__ uint32_t a_tile_offset(int row, int col) {
+  const int cb = col % 64;
+  return uint32_t((col / 64) * 64 * 128 + row * 128 + ((((cb * 2) >> 4) ^ (row & 7)) << 4) +
+                  ((cb * 2) & 15));
+}
+
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kWgThreads) : "memory");
+}
+
+
 
 template <int D>
 __global__ void __launch_bounds__(KVShape<D>::kThreads, 1)
@@ -536,6 +633,279 @@ bwd_dkdv_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const C
                Strides dks, Strides dvs, int causal, int window, float scale, float scale_log2,
                int split) {
   using Sh = KVShape<D>;
+  constexpr int BM = Sh::kBM, RB = Sh::kRowBytes, NS = Sh::kStages;
+  constexpr int KEYS = Sh::kKeys, BW = Sh::kBoxW;
+  extern __shared__ __align__(1024) uint8_t smem_tiles[];
+  // Swizzled tiles must start on 1024 bytes.
+  const uint32_t base = smem_u32(smem_tiles);
+  const uint32_t sK = (base + 1023) & ~1023u;
+  const uint32_t sV = sK + Sh::kKVBytes;
+  const uint32_t sQ = sV + Sh::kKVBytes;        // stage s at sQ + s * kQBytes
+  const uint32_t sO = sQ + NS * Sh::kQBytes;    // dO
+  // The A tiles: P^T high and low (warpgroup 0), dS^T high and low (1).
+  const uint32_t sA = sO + NS * Sh::kQBytes;
+  const uint32_t sL = sA + 4 * Sh::kATile;      // lse (base 2), kRowF32 a stage
+  const uint32_t sDl = sL + NS * Sh::kRowF32;   // Delta
+  // Barriers, 8 bytes each: kv_full, NS each of full and empty, p_full and
+  // p_empty (P^T written by warpgroup 0; read by warpgroup 1).
+  const uint32_t kv_full = sDl + NS * Sh::kRowF32;
+  const uint32_t full = kv_full + 8, empty = full + 8 * NS;
+  const uint32_t p_full = empty + 8 * NS, p_empty = p_full + 8;
+  const float* lrows = reinterpret_cast<const float*>(smem_tiles + (sL - base));
+  const float* drows = reinterpret_cast<const float*>(smem_tiles + (sDl - base));
+
+  const int b = blockIdx.z, kvh = blockIdx.x / split, part_i = blockIdx.x % split;
+  const int G = H / KV, gs = G / split, h0 = kvh * G + part_i * gs;
+  const int kbase = blockIdx.y * KEYS;
+  // Query tiles that can see the block's keys, walked for each of its gs
+  // heads in order: item i is head h0 + i / n_qt, tile qt0 + i % n_qt.
+  const int q_lo = causal ? kbase : 0;
+  const int q_hi = window > 0 ? min(Sq, kbase + KEYS - 1 + window) : Sq;
+  const int qt0 = q_lo / BM;
+  const int n_qt = q_hi > q_lo ? (q_hi + BM - 1) / BM - qt0 : 0;
+  const int n_items = gs * n_qt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * 4);  // one arrival per warp
+    }
+    mbar_init(p_full, 4);   // warpgroup 0's warps
+    mbar_init(p_empty, 4);  // warpgroup 1's warps
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Q, dO, lse and Delta of item it into its stage, once both warpgroups
+  // have released the stage's previous item.
+  const int wg = __shfl_sync(0xffffffffu, int(threadIdx.x) / kWgThreads, 0);
+  const bool loader = threadIdx.x == (Sh::kProducerWG ? 2 : 1) * kWgThreads;
+  auto load_item = [&](int it) {
+    const int s = it % NS;
+    const int h = h0 + it / n_qt, q0 = (qt0 + it % n_qt) * BM;
+    mbar_wait(empty + 8 * s, ((it / NS) & 1) ^ 1);  // the first round passes
+    mbar_expect_tx(full + 8 * s, Sh::kStageBytes);
+    for (int x = 0; x < Sh::kCount; ++x) {
+      tma_load(sQ + s * Sh::kQBytes + x * BM * RB, &tq, full + 8 * s, x * BW, q0, h, b);
+      tma_load(sO + s * Sh::kQBytes + x * BM * RB, &tdo, full + 8 * s, x * BW, q0, h, b);
+    }
+    const int64_t row = (int64_t(b) * H + h) * Sq_pad + q0;
+    bulk_load(sL + s * Sh::kRowF32, lse2 + row, Sh::kRowF32, full + 8 * s);
+    bulk_load(sDl + s * Sh::kRowF32, delta + row, Sh::kRowF32, full + 8 * s);
+  };
+  if constexpr (Sh::kProducerWG) {
+    if (wg == 2) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+      if (!loader) return;
+    }
+  }
+  if (loader) {
+    mbar_expect_tx(kv_full, 2 * Sh::kKVBytes);
+    for (int x = 0; x < Sh::kCount; ++x) {
+      tma_load(sK + x * KEYS * RB, &tk, kv_full, x * BW, kbase, kvh, b);
+      tma_load(sV + x * KEYS * RB, &tv, kv_full, x * BW, kbase, kvh, b);
+    }
+    for (int it = 0; it < (Sh::kProducerWG ? n_items : min(NS, n_items)); ++it) load_item(it);
+    if constexpr (Sh::kProducerWG) return;
+  }
+  if constexpr (Sh::kProducerWG)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+
+  // The block's 64 keys and all D columns of dV (warpgroup 0) or dK
+  // (warpgroup 1).  A thread holds keys kr0 and kr0 + 8 of its warp's 16;
+  // in each 8-column group of an accumulator the columns 2 (lane % 4) and
+  // 2 (lane % 4) + 1.
+  const int tid = threadIdx.x % kWgThreads;
+  const int lane = tid % 32;
+  const int kr0 = (tid / 32) * 16 + lane / 4;
+  // The first product's A (K or V) and K-major B (Q or dO); the
+  // accumulation's A tiles (P^T or dS^T) and MN-major B (dO or Q).
+  const uint32_t a_first = wg == 0 ? sK : sV;
+  const uint32_t b_first = wg == 0 ? sQ : sO;
+  const uint32_t a_hi = sA + (2 * wg) * Sh::kATile, a_lo = a_hi + Sh::kATile;
+  const uint32_t b_acc = wg == 0 ? sO : sQ;
+  uint8_t* const p_hi = smem_tiles + (sA - base);
+  uint8_t* const p_lo = p_hi + Sh::kATile;
+  uint8_t* const w_hi = smem_tiles + (a_hi - base);
+  uint8_t* const w_lo = smem_tiles + (a_lo - base);
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  float sc[BM / 2];  // S^T or dP^T of the tile: 64 keys x BM queries
+
+  mbar_wait(kv_full, 0);
+  int np = 0;     // tiles computed so far: the P^T handshake's phase
+  int held = -1;  // the stage whose accumulation may still be running
+  for (int it = 0; it < n_items; ++it) {
+    const int s = it % NS;
+    const int q0 = (qt0 + it % n_qt) * BM;
+    mbar_wait(full + 8 * s, (it / NS) & 1);
+    const bool seen = kbase < Skv && q0 < Sq && (!causal || kbase <= q0 + BM - 1) &&
+                      (window <= 0 || q0 < kbase + KEYS - 1 + window);
+    if (seen) {
+      // The first product over D in steps of 16, issued behind the previous
+      // tile's accumulation.
+      const uint64_t desc_a = opaque(make_desc(a_first, 16, 8 * RB, Sh::kLayout));
+      const uint64_t desc_b =
+          opaque(make_desc(b_first + s * Sh::kQBytes, 16, 8 * RB, Sh::kLayout));
+      fence_regs<BM / 2>(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int box = kk * 16 / BW, col = kk * 16 % BW;
+        wgmma_ss<BM>(sc, desc_a + ((box * KEYS * RB + 2 * col) >> 4),
+                     desc_b + ((box * BM * RB + 2 * col) >> 4), 0 < kk);
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();  // the first product, and the previous accumulation
+    fence_regs<BM / 2>(sc);
+    fence_regs<D / 2>(acc);
+    if (held >= 0) release(empty + 8 * held, lane);
+    held = -1;
+    if (!seen) release(empty + 8 * s, lane);
+    // The stage the previous item held takes the item NS - 1 on.
+    if (!Sh::kProducerWG && loader && it >= 1 && it + NS - 1 < n_items) load_item(it + NS - 1);
+    if (!seen) continue;
+    const uint32_t phase = uint32_t(np++) & 1;
+    const bool mask = (causal && kbase + KEYS - 1 > q0) ||
+                      (window > 0 && kbase <= q0 + BM - 1 - window) || kbase + KEYS > Skv ||
+                      q0 + BM > Sq;
+    // Element e of the tile: key kr0 + 8 ((e / 2) % 2), query
+    // 8 (e / 4) + 2 (lane % 4) + e % 2.
+    if (wg == 0) {
+      // P^T in place of S^T, into the tiles warpgroup 1 reads.
+      const float* lr = lrows + s * BM;
+#pragma unroll
+      for (int e = 0; e < BM / 2; ++e) {
+        const int key = kbase + kr0 + 8 * ((e / 2) % 2);
+        const int c = 8 * (e / 4) + 2 * (lane % 4) + e % 2;
+        sc[e] = exp2f(fmaf(sc[e], scale_log2, -lr[c]));
+        if (mask && !visible_pair(key, q0 + c, Sq, Skv, causal, window)) sc[e] = 0.f;
+      }
+      mbar_wait(p_empty, phase ^ 1);  // warpgroup 1 has read the last P^T
+#pragma unroll
+      for (int e = 0; e < BM / 2; e += 2) {
+        const uint32_t at = a_tile_offset(kr0 + 8 * ((e / 2) % 2), 8 * (e / 4) + 2 * (lane % 4));
+        uint32_t hi, lo;
+        pack_split(sc[e], sc[e + 1], hi, lo);
+        *reinterpret_cast<uint32_t*>(w_hi + at) = hi;
+        *reinterpret_cast<uint32_t*>(w_lo + at) = lo;
+      }
+      release(p_full, lane);
+    } else {
+      // dS^T = P^T (dP^T - Delta), P^T from warpgroup 0's tiles.
+      const float* dr = drows + s * BM;
+      mbar_wait(p_full, phase);
+#pragma unroll
+      for (int e = 0; e < BM / 2; e += 2) {
+        const int c = 8 * (e / 4) + 2 * (lane % 4);
+        const uint32_t at = a_tile_offset(kr0 + 8 * ((e / 2) % 2), c);
+        const float2 ph = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p_hi + at));
+        const float2 pl = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p_lo + at));
+        uint32_t hi, lo;
+        pack_split((ph.x + pl.x) * (sc[e] - dr[c]), (ph.y + pl.y) * (sc[e + 1] - dr[c + 1]), hi,
+                   lo);
+        *reinterpret_cast<uint32_t*>(w_hi + at) = hi;
+        *reinterpret_cast<uint32_t*>(w_lo + at) = lo;
+      }
+      release(p_empty, lane);
+    }
+    // The tiles are read by wgmma (the async proxy): every thread's writes
+    // fenced, and the warpgroup's four warps past them, before it issues.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    warpgroup_sync(wg);
+    // dV += P^T dO or dK += dS^T Q over the tile's queries in steps of 16,
+    // the high parts then the low ones; dO or Q the MN-major B.  Left
+    // running under the next tile's first product.
+    {
+      const uint64_t dh = opaque(make_desc(a_hi, 16, 8 * 128, 1));
+      const uint64_t dl = opaque(make_desc(a_lo, 16, 8 * 128, 1));
+      const uint64_t db =
+          opaque(make_desc(b_acc + s * Sh::kQBytes, BM * RB, 8 * RB, Sh::kLayout));
+      fence_regs<D / 2>(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) {
+        const uint32_t at = ((kk * 16 / 64) * 64 * 128 + 2 * (kk * 16 % 64)) >> 4;
+        wgmma_ss_tb<D>(acc, dh + at, db + ((kk * 16 * RB) >> 4));
+      }
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) {
+        const uint32_t at = ((kk * 16 / 64) * 64 * 128 + 2 * (kk * 16 % 64)) >> 4;
+        wgmma_ss_tb<D>(acc, dl + at, db + ((kk * 16 * RB) >> 4));
+      }
+      wgmma_commit();
+    }
+    held = s;
+  }
+  wgmma_wait<0>();
+  fence_regs<D / 2>(acc);
+  if (held >= 0) release(empty + 8 * held, lane);
+
+  // dV (warpgroup 0) or scale * dK (warpgroup 1); where split > 1 the f32
+  // sums go to part ([2, split, ...]: dK's, then dV's) for the reduction.
+  const int64_t n = int64_t(B) * KV * Skv * D;
+  __nv_bfloat16* out = wg == 0 ? dv : dk;
+  const Strides os = wg == 0 ? dvs : dks;
+  const float mult = wg == 0 ? 1.f : scale;
+  float* pbase = part + int64_t(wg == 0 ? split + part_i : part_i) * n;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * (lane % 4);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = kbase + kr0 + 8 * r;
+      if (key >= Skv) continue;
+      const float v0 = acc[4 * j + 2 * r], v1 = acc[4 * j + 2 * r + 1];
+      if (split == 1) {
+        *reinterpret_cast<__nv_bfloat162*>(out + b * os.b + kvh * os.h + key * os.s + col) =
+            __floats2bfloat162_rn(v0 * mult, v1 * mult);
+      } else {
+        const int64_t at = ((int64_t(b) * KV + kvh) * Skv + key) * D + col;
+        *reinterpret_cast<float2*>(pbase + at) = make_float2(v0, v1);
+      }
+    }
+  }
+}
+
+// The dK/dV pass below D = 128: each of the two consumer warpgroups owns 64
+// of the block's 128 keys and computes everything for them, S^T, dP^T and
+// both products, P^T and dS^T packed into A fragments in registers (high
+// and low bf16 halves), beside a producer warpgroup.  There D is small and
+// a tile's products short, so the role split's hand-over of P^T between
+// the warpgroups costs more than it saves (slower at D = 64), and
+// the accumulators (2 x D / 2 registers) fit in 168.
+template <int D>
+struct KVOwnShape : Boxes<D> {
+  static constexpr int kKeys = 128;                  // keys per block: 64 a warpgroup
+  static constexpr int kCols = D;                    // dK, dV columns per warpgroup
+  static constexpr int kBM = 64;                     // queries per tile
+  static constexpr int kThreads = 3 * kWgThreads;
+  static constexpr int kKVBytes = kKeys * D * 2;     // the K tile, or the V tile
+  static constexpr int kQBytes = kBM * D * 2;        // a Q tile, or a dO tile
+  static constexpr int kRowF32 = kBM * 4;            // a tile's lse, or its Delta
+  static constexpr int kStageBytes = 2 * kQBytes + 2 * kRowF32;
+  static constexpr int kFit = (kSmemLimit - 2048 - 2 * kKVBytes) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr size_t kSmemBytes =
+      1024 + 2 * size_t(kKVBytes) + size_t(kStages) * kStageBytes + 8 * (1 + 2 * kStages);
+  static_assert(D <= 64, "the accumulators fit in 168 registers up to D = 64");
+  static_assert(kStages >= 2 && kSmemBytes <= kSmemLimit, "tiles do not fit");
+  static_assert(kRowPad % kBM == 0, "a query tile never crosses Sq_pad");
+};
+
+template <int D>
+__global__ void __launch_bounds__(KVOwnShape<D>::kThreads, 1)
+bwd_dkdv_own_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tdo,
+               __grid_constant__ const CUtensorMap tk, __grid_constant__ const CUtensorMap tv,
+               const float* __restrict__ lse2, const float* __restrict__ delta,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+               float* __restrict__ part, int B, int H, int KV, int Sq, int Skv, int Sq_pad,
+               Strides dks, Strides dvs, int causal, int window, float scale, float scale_log2,
+               int split) {
+  using Sh = KVOwnShape<D>;
   constexpr int BM = Sh::kBM, RB = Sh::kRowBytes, NS = Sh::kStages, KEYS = Sh::kKeys;
   constexpr int COLS = Sh::kCols, BW = Sh::kBoxW;
   extern __shared__ __align__(1024) uint8_t smem_tiles[];
@@ -599,16 +969,14 @@ bwd_dkdv_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const C
       }
     }
   } else {
-    // Consumer: 64 keys (its own, or at D = 256 the block's) and COLS
-    // columns of their dK and dV.  A thread holds keys kr0 and kr0 + 8 of
-    // its warp's 16; in each 8-column group of an accumulator the columns
-    // 2 (lane % 4) and 2 (lane % 4) + 1.
+    // Consumer: its own 64 keys and all D columns of their dK and dV.  A
+    // thread holds keys kr0 and kr0 + 8 of its warp's 16; in each 8-column
+    // group of an accumulator the columns 2 (lane % 4) and 2 (lane % 4) + 1.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     const int tid = threadIdx.x % kWgThreads;
     const int lane = tid % 32;
-    const int kw = Sh::kSplitD ? 0 : 64 * wg;   // this warpgroup's keys in the block's tile
+    const int kw = 64 * wg;  // this warpgroup's keys in the block's tile
     const int k0w = kbase + kw;
-    const int col0 = Sh::kSplitD ? wg * COLS : 0;
     const int kr0 = (tid / 32) * 16 + lane / 4;
     float adk[COLS / 2], adv[COLS / 2];
 #pragma unroll
@@ -653,11 +1021,7 @@ bwd_dkdv_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const C
             if (mask && !visible_pair(key, q0 + c, Sq, Skv, causal, window)) sc[e] = 0.f;
           }
         };
-        // Both products issued together.  At D = 256 the two warpgroups
-        // compute the same two for their shared 64 keys; trading them
-        // through shared memory behind a barrier of both ran slower on the
-        // H100: the barrier keeps one warpgroup's softmax from overlapping
-        // the other's products.
+        // Both products issued together.
         wgmma_fence();
         issue(sc, sK + kw * RB, sq);
         issue(dp, sV + kw * RB, so);
@@ -675,12 +1039,10 @@ bwd_dkdv_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const C
                      dl[e / 2]);
         }
         // dV += P^T dO and dK += dS^T Q over the tile's queries in steps of
-        // 16; dO and Q are the MN-major B operands, from this warpgroup's
-        // first column on.
+        // 16; dO and Q are the MN-major B operands.
         {
-          const uint32_t cb = (col0 / BW) * BM * RB;
-          const uint64_t bo = opaque(make_desc(so + cb, BM * RB, 8 * RB, Sh::kLayout));
-          const uint64_t bq = opaque(make_desc(sq + cb, BM * RB, 8 * RB, Sh::kLayout));
+          const uint64_t bo = opaque(make_desc(so, BM * RB, 8 * RB, Sh::kLayout));
+          const uint64_t bq = opaque(make_desc(sq, BM * RB, 8 * RB, Sh::kLayout));
           fence_u32<BM / 4>(pa);
           fence_u32<BM / 4>(pl);
           fence_u32<BM / 4>(da);
@@ -716,7 +1078,7 @@ bwd_dkdv_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const C
     const int64_t n = int64_t(B) * KV * Skv * D;
 #pragma unroll
     for (int j = 0; j < COLS / 8; ++j) {
-      const int col = col0 + 8 * j + 2 * (lane % 4);
+      const int col = 8 * j + 2 * (lane % 4);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int key = k0w + kr0 + 8 * r;
@@ -737,6 +1099,23 @@ bwd_dkdv_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const C
     }
   }
 }
+
+// dQ pass: NC consumer warpgroups of 64 query rows each, and a producer.
+template <int D>
+struct QShape : Boxes<D> {
+  static constexpr int kNC = D == 256 ? 1 : 2;
+  static constexpr int kBM = 64 * kNC;               // query rows per block
+  static constexpr int kThreads = kWgThreads * (kNC + 1);
+  static constexpr int kBN = 64;                     // keys per tile
+  static constexpr int kQBytes = kBM * D * 2;        // Q, or dO
+  static constexpr int kTileBytes = kBN * D * 2;     // one K or V tile
+  static constexpr int kFit = (kSmemLimit - 2048 - 2 * kQBytes) / (2 * kTileBytes);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr size_t kSmemBytes =
+      1024 + 2 * size_t(kQBytes) + size_t(2 * kStages) * kTileBytes + 8 * (1 + 4 * kStages);
+  static_assert(kStages >= 2 && kSmemBytes <= kSmemLimit, "tiles do not fit");
+};
+
 
 template <int D>
 __global__ void __launch_bounds__(QShape<D>::kThreads, 1)
@@ -924,11 +1303,16 @@ bwd_dq_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUt
 
 template <int D>
 int bwd_wgmma(const BwdArgs& a) {
-  using KS = KVShape<D>;
-  using QS = QShape<D>;
+  // D >= 128: the warpgroups split by role; below, each owns its keys.
+  using KS = std::conditional_t<(D >= 128), KVShape<D>, KVOwnShape<D>>;
+  constexpr auto dkdv = [] {
+    if constexpr (D >= 128) return bwd_dkdv_wgmma<D>;
+    else return bwd_dkdv_own_wgmma<D>;
+  }();
+  if (a.keys != KS::kKeys) return int(cudaErrorInvalidValue);
   const int key_tiles = (a.Skv + KS::kKeys - 1) / KS::kKeys;
-  const int q_tiles = (a.Sq + QS::kBM - 1) / QS::kBM;
-  if (key_tiles > 65535 || q_tiles > 65535) return int(cudaErrorInvalidConfiguration);
+  if (key_tiles > 65535 || (a.Sq + QShape<D>::kBM - 1) / QShape<D>::kBM > 65535)
+    return int(cudaErrorInvalidConfiguration);
   int err = launch_prologue<__nv_bfloat16>(a, kLog2e);
   if (err != 0) return err;
   const float* delta = a.aux;
@@ -942,12 +1326,11 @@ int bwd_wgmma(const BwdArgs& a) {
   if (err == 0) err = encode_map(&tk, a.k, D, a.Skv, a.KV, a.B, a.ks, KS::kBoxW, KS::kKeys);
   if (err == 0) err = encode_map(&tv, a.v, D, a.Skv, a.KV, a.B, a.vs, KS::kBoxW, KS::kKeys);
   if (err != 0) return err;
-  cudaError_t cerr = cudaFuncSetAttribute(bwd_dkdv_wgmma<D>,
-                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t cerr = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           int(KS::kSmemBytes));
   if (cerr != cudaSuccess) return int(cerr);
-  bwd_dkdv_wgmma<D><<<dim3(unsigned(a.KV * a.split), unsigned(key_tiles), unsigned(a.B)),
-                      KS::kThreads, KS::kSmemBytes, a.stream>>>(
+  dkdv<<<dim3(unsigned(a.KV * a.split), unsigned(key_tiles), unsigned(a.B)), KS::kThreads,
+         KS::kSmemBytes, a.stream>>>(
       tq, tdo, tk, tv, lse2, delta, static_cast<__nv_bfloat16*>(a.dk),
       static_cast<__nv_bfloat16*>(a.dv), a.part, a.B, a.H, a.KV, a.Sq, a.Skv, a.Sq_pad, a.dks,
       a.dvs, a.causal, a.window, a.scale, scale_log2, a.split);
@@ -956,6 +1339,8 @@ int bwd_wgmma(const BwdArgs& a) {
   if (err != 0) return err;
 
   // dQ pass: Q and dO in boxes of the block's rows, K and V of BN keys.
+  using QS = QShape<D>;
+  const int q_tiles = (a.Sq + QS::kBM - 1) / QS::kBM;
   err = encode_map(&tq, a.q, D, a.Sq, a.H, a.B, a.qs, QS::kBoxW, QS::kBM);
   if (err == 0) err = encode_map(&tdo, a.d_o, D, a.Sq, a.H, a.B, a.dos, QS::kBoxW, QS::kBM);
   if (err == 0) err = encode_map(&tk, a.k, D, a.Skv, a.KV, a.B, a.ks, QS::kBoxW, QS::kBN);
@@ -991,9 +1376,12 @@ int run_bwd(BwdLaunch fn16, BwdLaunch fn32, BwdLaunch fn64, BwdLaunch fn128, Bwd
 // q, k, v, o, d_o, dq, dk and dv share one dtype: float32 for the _f32
 // entry point, bfloat16 for the _wgmma one.  lse is the forward's [B, H, Sq]
 // float32 output; aux a float32 scratch of [2, B, H, Sq_pad] (Sq_pad = Sq
-// rounded up to 64) and, where split > 1, part one of [2, split, B, KV, Skv,
-// D]; split divides H / KV.  Strides are in elements, for the batch, head
-// and sequence dimensions; the last dimension is contiguous.
+// rounded up to 128) and, where split > 1, part one of [2, split, B, KV, Skv,
+// D]; split divides H / KV.  keys_per_block is the keys a block of the
+// dK/dV pass owns, which the caller's split assumed (kernel.py's
+// BACKWARD_KEYS_PER_BLOCK): a launch with another value is refused.
+// Strides are in elements, for the batch, head and sequence dimensions;
+// the last dimension is contiguous.
 #define BWD_ARGS                                                                              \
   const void *q, const void *k, const void *v, const void *o, const void *d_o,                \
       const float *lse, void *dq, void *dk, void *dv, float *aux, float *part, int B, int H,  \
@@ -1002,7 +1390,7 @@ int run_bwd(BwdLaunch fn16, BwdLaunch fn32, BwdLaunch fn64, BwdLaunch fn128, Bwd
       int64_t osb, int64_t osh, int64_t oss, int64_t dosb, int64_t dosh, int64_t doss,        \
       int64_t dqsb, int64_t dqsh, int64_t dqss, int64_t dksb, int64_t dksh, int64_t dkss,     \
       int64_t dvsb, int64_t dvsh, int64_t dvss, int causal, int64_t window, float sm_scale,   \
-      int split, cudaStream_t stream
+      int split, int keys_per_block, cudaStream_t stream
 
 static int bwd_call(BwdLaunch f16, BwdLaunch f32, BwdLaunch f64, BwdLaunch f128,
                     BwdLaunch f256, BWD_ARGS) {
@@ -1014,14 +1402,14 @@ static int bwd_call(BwdLaunch f16, BwdLaunch f32, BwdLaunch f64, BwdLaunch f128,
                   Strides{qsb, qsh, qss}, Strides{ksb, ksh, kss}, Strides{vsb, vsh, vss},
                   Strides{osb, osh, oss}, Strides{dosb, dosh, doss}, Strides{dqsb, dqsh, dqss},
                   Strides{dksb, dksh, dkss}, Strides{dvsb, dvsh, dvss}, causal, int(window),
-                  sm_scale, split, stream};
+                  sm_scale, split, keys_per_block, stream};
   return run_bwd(f16, f32, f64, f128, f256, a);
 }
 
 #define BWD_PASS                                                                              \
   q, k, v, o, d_o, lse, dq, dk, dv, aux, part, B, H, KV, Sq, Skv, D, qsb, qsh, qss, ksb, ksh, \
       kss, vsb, vsh, vss, osb, osh, oss, dosb, dosh, doss, dqsb, dqsh, dqss, dksb, dksh, dkss, \
-      dvsb, dvsh, dvss, causal, window, sm_scale, split, stream
+      dvsb, dvsh, dvss, causal, window, sm_scale, split, keys_per_block, stream
 
 extern "C" int flash_attention_bwd_f32_launch(BWD_ARGS) {
   return bwd_call(bwd_f32<16>, bwd_f32<32>, bwd_f32<64>, bwd_f32<128>, bwd_f32<256>, BWD_PASS);
@@ -1033,15 +1421,3 @@ extern "C" int flash_attention_bwd_wgmma_launch(BWD_ARGS) {
 }
 
 extern "C" const char* flash_attention_bwd_error_string(int code) { return error_text(code); }
-
-// The keys a block of the dK/dV pass owns (the wrapper's split reads it);
-// 0 for a head_dim the kernels do not take.
-extern "C" int flash_attention_bwd_keys_per_block(int wgmma, int D) {
-  if (!wgmma) return D == 16 || D == 32 || D == 64 || D == 128 || D == 256 ? kFB : 0;
-  return D == 16    ? KVShape<16>::kKeys
-         : D == 32  ? KVShape<32>::kKeys
-         : D == 64  ? KVShape<64>::kKeys
-         : D == 128 ? KVShape<128>::kKeys
-         : D == 256 ? KVShape<256>::kKeys
-                    : 0;
-}

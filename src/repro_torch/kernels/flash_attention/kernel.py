@@ -31,7 +31,14 @@ BACKWARD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 VARIANTS = {torch.bfloat16: "wgmma", torch.float32: "f32"}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 TMA_ALIGN = 16  # bytes: the TMA unit's rule for a base address and a stride
-ROW_PAD = 64  # the backward's row padding of lse and Delta
+ROW_PAD = 128  # the backward's row padding of lse and Delta (kRowPad)
+# The keys a block of the backward's dK/dV pass owns: the f32 variant's
+# tiles (kFB in csrc/flash_attention_bwd.cu), and the wgmma variant's by
+# head_dim, 64 where its warpgroups split the work by role (D >= 128,
+# KVShape) and 128 where each owns 64 keys (KVOwnShape).  The launch is
+# given the value its split assumed and refuses any other.
+BACKWARD_KEYS_PER_BLOCK = {"f32": {d: 32 for d in HEAD_DIMS},
+                           "wgmma": {d: 64 if d >= 128 else 128 for d in HEAD_DIMS}}
 # The grid the backward's dK/dV pass aims for: two blocks an SM of a 132-SM
 # H100.  A constant, not the card's SM count, so that the split, and with
 # it the gradients' bits, depend only on the shapes.
@@ -67,19 +74,20 @@ def load_backward() -> ctypes.CDLL:
     for variant in VARIANTS.values():
         fn = getattr(lib, f"flash_attention_bwd_{variant}_launch")
         fn.argtypes = ([ptr] * 11 + [i32, i32, i32, i64, i64, i32] + [i64] * 24
-                       + [i32, i64, ctypes.c_float, i32, ptr])
+                       + [i32, i64, ctypes.c_float, i32, i32, ptr])
         fn.restype = ctypes.c_int
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
-    lib.flash_attention_bwd_keys_per_block.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.flash_attention_bwd_keys_per_block.restype = ctypes.c_int
     return lib
 
 
 def backward_keys_per_block(variant: str, D: int) -> int:
-    """The keys a block of the backward's dK/dV pass owns, as the library
-    was compiled (KVShape and kFB in csrc/flash_attention_bwd.cu)."""
-    return load_backward().flash_attention_bwd_keys_per_block(int(variant == "wgmma"), D)
+    """The keys a block of the backward's dK/dV pass owns: a constant of
+    the variant and the head_dim, so the split (and the gradients' bits)
+    follows from the shapes alone, with no library or card asked."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    return BACKWARD_KEYS_PER_BLOCK[variant][D]
 
 
 def tma_layout_error(shape, strides, dtype: torch.dtype, ptr: int) -> str | None:
@@ -248,7 +256,8 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     dq, dk, dv = _like(q), _like(k), _like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    split = backward_split(backward_keys_per_block(variant, D), B, KV, H // KV, Skv)
+    keys = backward_keys_per_block(variant, D)
+    split = backward_split(keys, B, KV, H // KV, Skv)
     sq_pad = -(-Sq // ROW_PAD) * ROW_PAD
     aux = torch.empty((2, B, H, sq_pad), dtype=torch.float32, device=q.device)
     part = (torch.empty((2, split, B, KV, Skv, D), dtype=torch.float32, device=q.device)
@@ -262,7 +271,7 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
             None if part is None else part.data_ptr(),
             B, H, KV, Sq, Skv, D,
             *(st for t in (q, k, v, out, d_out, dq, dk, dv) for st in tma_strides(t)),
-            int(causal), window, _scale(D), split, stream)
+            int(causal), window, _scale(D), split, keys, stream)
     if err != 0:
         raise RuntimeError(
             f"flash attention backward ({variant}) launch failed: "

@@ -8,9 +8,10 @@ counts the launches, so a run can show that its work went through the
 kernel.
 
 The gradient is ``csrc/rmsnorm_bwd.cu`` (the TPU kernel had none), built
-and bound the same way, cut over threads with the forward's plan;
-``BACKWARD_LAUNCHES`` counts its calls (two launches each: the rows, then
-the column sums of ``dscale``).
+and bound the same way, cut over threads with a plan of its own
+(``backward_plan`` and ``backward_blocks``); ``BACKWARD_LAUNCHES`` counts
+its calls (two launches each: the rows, then the column sums of
+``dscale``).
 """
 
 from __future__ import annotations
@@ -33,7 +34,20 @@ UNIT_BYTES = 16  # x's bytes in one vector unit
 PER_THREAD = 2  # units a thread holds at most (kPer in the source)
 MAX_THREADS = 1024  # threads of one row at most
 BLOCK_THREADS = 256  # narrow rows share a block of up to this many threads
-BACKWARD_MAX_BLOCKS = 264  # two blocks an SM: a lane walks N / 264 rows
+# The backward (kPer, kMaxBlock and kMaxGroups in csrc/rmsnorm_bwd.cu):
+# up to four units of x and of g a thread, row groups sharing a block of up
+# to BACKWARD_GROUP_THREADS threads, each lane keeping BACKWARD_RING (or 2)
+# rows in flight through shared memory where they fit in BACKWARD_SMEM
+# bytes, on a grid of BACKWARD_BLOCKS blocks at most (one an SM of an H100;
+# a constant, so that the order of dscale's sums never depends on the
+# card), so that ``partial`` holds at most that many rows of D floats.
+BACKWARD_PER_THREAD = 4
+BACKWARD_BLOCK_THREADS = 512
+BACKWARD_GROUP_THREADS = 384
+BACKWARD_MAX_GROUPS = 8
+BACKWARD_RING = 4
+BACKWARD_SMEM = 200 * 1024
+BACKWARD_BLOCKS = 128
 
 LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
@@ -44,6 +58,13 @@ class Plan(NamedTuple):
     unit: int  # elements of a unit: 16 bytes of x, or 1
     threads: int  # threads of one row, a multiple of 32
     rows_per_block: int
+
+
+class BackwardPlan(NamedTuple):
+    unit: int  # elements of a unit: 16 bytes of x, or 1
+    threads: int  # threads of one row, a multiple of 32
+    groups: int  # row groups (lanes) of a block
+    ring: int  # rows a lane keeps in flight in shared memory; 0: in registers
 
 
 def launch_plan(cols: int, dtype: torch.dtype) -> Plan:
@@ -78,11 +99,35 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def backward_blocks(rows: int, rows_per_block: int) -> int:
-    """Blocks of the backward's first pass: one lane (a row group) walks
-    every lanes-th row, so ``dscale``'s order of sums depends on N and the
-    plan only."""
-    return max(1, min(-(-rows // rows_per_block), BACKWARD_MAX_BLOCKS))
+def backward_plan(cols: int, dtype: torch.dtype) -> BackwardPlan:
+    """How the backward cuts a row of ``cols`` elements of ``dtype``: up to
+    four units of x (and of g) a thread; as many such row groups to a block
+    as fit in 384 threads (at most 8); and a ring of BACKWARD_RING rows a
+    lane in shared memory (or of 2) where the rows are whole 16-byte units
+    and the ring fits.  Like ``launch_plan`` it depends on the row's width
+    and type only, so a row's dx reduces in the same order in every
+    launch."""
+    size = torch.empty((), dtype=dtype).element_size()
+    vec = UNIT_BYTES // size
+    unit = vec if cols % vec == 0 else 1
+    units = cols // unit
+    threads = -(-units // (32 * BACKWARD_PER_THREAD)) * 32
+    if threads > BACKWARD_BLOCK_THREADS:
+        raise ValueError(f"rows of {cols} {dtype} elements are wider than the backward's "
+                         f"{BACKWARD_PER_THREAD * BACKWARD_BLOCK_THREADS} units of {unit}")
+    groups = max(1, min(BACKWARD_MAX_GROUPS, BACKWARD_GROUP_THREADS // threads))
+    fits = [r for r in (BACKWARD_RING, 2) if unit == vec and 4 * cols * (1 + groups)
+            + groups * r * (2 * cols * size + 8) <= BACKWARD_SMEM]
+    return BackwardPlan(unit, threads, groups, fits[0] if fits else 0)
+
+
+def backward_blocks(rows: int, plan: BackwardPlan) -> int:
+    """Blocks of the backward's first pass, each writing one row of
+    ``partial``: a row a lane where that takes fewer than BACKWARD_BLOCKS
+    blocks, else BACKWARD_BLOCKS.  Lane l walks rows l, l + lanes, ..., so
+    the order of ``dscale``'s sums depends on N and the plan only, never on
+    the card."""
+    return max(1, min(-(-rows // plan.groups), BACKWARD_BLOCKS))
 
 
 @functools.cache
@@ -91,7 +136,7 @@ def load_backward() -> ctypes.CDLL:
     lib = load_library(BACKWARD_SOURCE)
     fn = lib.rmsnorm_bwd_launch
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 6 + [ctypes.c_int64, ctypes.c_int64] + [i32] * 6 \
+    fn.argtypes = [ptr] * 6 + [ctypes.c_int64, ctypes.c_int64] + [i32] * 7 \
         + [ctypes.c_float, ptr]
     fn.restype = ctypes.c_int
     lib.rmsnorm_bwd_error_string.argtypes = [ctypes.c_int]
@@ -159,16 +204,14 @@ def rms_norm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
         raise ValueError(
             f"g must be a contiguous {tuple(x.shape)} {x.dtype} tensor on "
             f"{x.device}, got {tuple(g.shape)} {g.dtype} on {g.device}")
-    dx = torch.empty_like(x)
-    dscale = torch.zeros_like(scale)
     if x.numel() == 0:
-        return dx, dscale
-    plan = launch_plan(x.shape[1], x.dtype)
+        return torch.empty_like(x), torch.zeros_like(scale)
+    plan = backward_plan(x.shape[1], x.dtype)
     if plan.unit > 1:
-        x, g, scale = _aligned(x), _aligned(g), _aligned(scale)
-    blocks = backward_blocks(x.shape[0], plan.rows_per_block)
-    partial = torch.empty((blocks * plan.rows_per_block, x.shape[1]),
-                          dtype=torch.float32, device=x.device)
+        x, g = _aligned(x), _aligned(g)
+    blocks = backward_blocks(x.shape[0], plan)
+    dx, dscale = torch.empty_like(x), torch.empty_like(scale)
+    partial = torch.empty((blocks, x.shape[1]), dtype=torch.float32, device=x.device)
     lib = load_backward()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -277,11 +277,14 @@ def test_incoming_gradient_is_made_readable_by_the_tma_unit():
 
 @pytest.mark.parametrize("keys,b,kv,g,skv,want", [
     (64, 1, 1, 10, 2048, 10),   # recurrentgemma-2b (wgmma, D 256): 32 key tiles of one KV head
-    (128, 1, 16, 1, 2048, 1),   # olmoe (wgmma, D 128): MHA, nothing to split
-    (128, 1, 8, 2, 2304, 2),    # internvl2-2b (wgmma, D 128): 144 blocks, split in 2
-    (128, 1, 8, 5, 512, 5),     # maverick at 512 (wgmma, D 128): 32 blocks
+    (128, 1, 16, 1, 2048, 1),   # MHA at 128 keys a block: nothing to split
+    (128, 1, 8, 2, 2304, 2),    # GQA 16 / 8 at 128 keys a block: 144 blocks, split in 2
+    (128, 1, 8, 5, 512, 5),     # GQA 40 / 8 at 512, 128 keys a block: 32 blocks
     (128, 4, 8, 4, 4096, 1),    # enough blocks already
     (32, 1, 4, 8, 1000, 4),     # f32, 32 keys a block: 128 blocks, x4
+    (64, 1, 16, 1, 2048, 1),    # olmoe (wgmma, D 128, 64 keys a block): MHA, nothing to split
+    (64, 1, 8, 2, 2304, 1),     # internvl2-2b (wgmma, D 128): 288 blocks, no split
+    (64, 1, 8, 5, 512, 5),      # maverick at 512 (wgmma, D 128): 64 blocks, x5
 ])
 def test_backward_split_fills_the_card_and_divides_the_group(keys, b, kv, g, skv, want):
     """The split is a function of the shapes alone: no card is asked."""
