@@ -40,9 +40,9 @@ source, all at once) and drives the port's paths on the card:
    than the window so that the local layers' ring wraps, and its serving
    run repeated under ``torch.profiler`` to see where the device time goes.
 4. Training: the gradients of the three model kernels held against their
-   plain versions (the RMS-norm backward kernel; the RG-LRU backward, the
-   scan kernel on reversed inputs, bit-equal to the same construction over
-   ``rglru_scan_chunked``; the flash backward kernel against
+   plain versions (the RMS-norm backward kernel; the RG-LRU backward
+   kernel, bit-equal to the flip construction over ``rglru_scan_chunked``
+   at the plan's chunk length; the flash backward kernel against
    ``flash_backward_reference`` and the explicit gradient in f32, each case
    twice and bit-equal, and the flash Function, both kernels, against
    autograd of the plain forward); the ``Trainer`` on recurrentgemma-2b's
@@ -105,6 +105,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import importlib.metadata
+import itertools
 import json
 import math
 import os
@@ -310,7 +311,11 @@ RG_SERVE_PROMPTS = ((12, (64, 1025)), (4, (2100, 3501)))
 # the train_4k shape (S 4096, batch 256) to fit one card's 80 GB.
 RMS_BWD_SHAPES = [(9, 77), (2048, 2560), (2048, 4096), (4, 64), (2048, 1024),
                   (2048, 2048), (512, 5120)]
-RGLRU_BWD_S, RGLRU_BWD_W = (1, 16, 17, 2048), 2560
+# The RG-LRU backward at S around the chunk lengths 16 and 32 and past the
+# 32-step chunks it holds in registers (S > 2,048), at the model's W and a
+# ragged one, B 1 and 3, with and without h0, a (and h) in f32 and bf16.
+RGLRU_BWD_S = (1, 15, 16, 17, 53, 1000, 2048, 3000)
+RGLRU_BWD_W, RGLRU_BWD_B = (2560, 200), (1, 3)
 FLASH_BWD = [(1, 10, 1, 2048, 256, 2048), (1, 4, 2, 50, 16, 32), (1, 32, 4, 1000, 128, 0)]
 # The backward kernel alone (b, h, kv, sq, skv, d, causal, window): FLASH_BWD's
 # three; seamless's encoder (non-causal) and a cross-attention of 1,024
@@ -831,20 +836,22 @@ def build_kernels() -> None:
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(11) as pool:
+    with ThreadPoolExecutor(13) as pool:
         builds = {name: pool.submit(timed_load, load) for name, load in (
             ("mandelbrot", mandel_kernel.load), ("rmsnorm", rms_kernel.load),
             ("rmsnorm_backward", rms_kernel.load_backward),
             ("flash_attention", flash_kernel.load),
             ("flash_attention_backward", flash_kernel.load_backward),
-            ("rglru", rglru_kernel.load))}
+            ("rglru", rglru_kernel.load),
+            ("rglru_backward", rglru_kernel.load_backward))}
         ptxas = {f"{name}_ptxas": pool.submit(ptxas_report, source, flags)
                  for name, source, flags in (
                      ("mandelbrot", mandel_kernel.SOURCE, mandel_kernel.FLAGS),
                      ("rmsnorm", rms_kernel.SOURCE, ()),
                      ("rmsnorm_backward", rms_kernel.BACKWARD_SOURCE, ()),
                      ("flash_attention_backward", flash_kernel.BACKWARD_SOURCE, ()),
-                     ("rglru", rglru_kernel.SOURCE, ()))}
+                     ("rglru", rglru_kernel.SOURCE, ()),
+                     ("rglru_backward", rglru_kernel.BACKWARD_SOURCE, ()))}
         seconds = {name: f.result() for name, f in builds.items()}
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "per_kernel_s": seconds,
@@ -1957,38 +1964,46 @@ def check_rmsnorm_backward() -> float:
 
 
 def check_rglru_backward() -> float:
-    """The RG-LRU backward (the scan kernel on reversed inputs) bit-equal to
-    the same construction over ``rglru_scan_chunked`` at the plan's chunk
-    length, and within 1e-5 of the explicit reverse loop."""
+    """The RG-LRU backward kernel bit-equal to the flip construction over
+    ``rglru_scan_chunked`` at the plan's chunk length (what the card ran
+    before the kernel), and within ``RGLRU_TOL`` (1e-5 in f32) of the
+    explicit reverse loop, over ``RGLRU_BWD_S`` x W x B x h0 x dtype."""
     gen = torch.Generator("cuda").manual_seed(6)
     worst = 0.0
-    for s in RGLRU_BWD_S:
-        for with_h0 in (False, True):
-            w = RGLRU_BWD_W
-            a = 0.5 + 0.499 * torch.rand((1, s, w), generator=gen, device="cuda")
-            b = torch.randn((1, s, w), generator=gen, device="cuda")
-            h0 = torch.randn((1, w), generator=gen, device="cuda") if with_h0 else None
-            h, _last = rglru_kernel.rglru_scan_cuda(a, b, h0)
-            gh = torch.randn((1, s, w), generator=gen, device="cuda")
-            g_last = torch.randn((1, w), generator=gen, device="cuda")
-            got = rglru_kernel.rglru_scan_backward_cuda(a, h, h0, gh, g_last)
-            length = rglru_kernel.chunk_plan(s, w).length
-            chunked = rglru_scan_backward(
-                a, h, h0, gh, g_last,
-                lambda a_, b_, h0_: rglru_scan_chunked(a_, b_, h0_, length))
-            loop = rglru_scan_backward_reference(a, h, h0, gh, g_last)
-            pairs = [(x, y, z) for x, y, z in zip(got, chunked, loop) if x is not None]
-            bit = all(torch.equal(x, y) for x, y, _ in pairs)
-            err = max(float((x - z).abs().max()) for x, _, z in pairs)
-            ok = bit and err <= RGLRU_TOL[torch.float32]
-            emit({"phase": "rglru_backward_vs_plain", "shape": [1, s, w],
-                  "h0": with_h0, "chunk_len": length,
-                  "bit_equal_chunked": bit, "max_abs_err_vs_loop": err,
-                  "tol": RGLRU_TOL[torch.float32], "ok": ok})
-            if not ok:
-                raise SystemExit(f"rglru backward differs at S={s} h0={with_h0}")
-            worst = max(worst, err)
+    for dtype, s, w, bsz, with_h0 in itertools.product(
+            (torch.float32, torch.bfloat16), RGLRU_BWD_S, RGLRU_BWD_W, RGLRU_BWD_B,
+            (False, True)):
+        shape = (bsz, s, w)
+        a = (0.5 + 0.499 * torch.rand(shape, generator=gen, device="cuda")).to(dtype)
+        b = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        h0 = (torch.randn((bsz, w), generator=gen, device="cuda").to(dtype)
+              if with_h0 else None)
+        h, _last = rglru_kernel.rglru_scan_cuda(a, b, h0)
+        gh = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g_last = torch.randn((bsz, w), generator=gen, device="cuda")
+        got = rglru_kernel.rglru_scan_backward_cuda(a, h, h0, gh, g_last)
+        length = rglru_kernel.chunk_plan(s, w).length
+        chunked = rglru_scan_backward(
+            a, h, h0, gh, g_last,
+            lambda a_, b_, h0_: rglru_scan_chunked(a_, b_, h0_, length))
+        loop = rglru_scan_backward_reference(a, h, h0, gh, g_last)
+        pairs = [(x, y, z) for x, y, z in zip(got, chunked, loop) if x is not None]
+        bit = all(x.dtype == y.dtype and torch.equal(bits(x), bits(y))
+                  for x, y, _ in pairs)
+        err = max(float((x.float() - z.float()).abs().max()) for x, _, z in pairs)
+        ok = bit and err <= RGLRU_TOL[dtype]
+        emit({"phase": "rglru_backward_vs_plain", "shape": list(shape), "h0": with_h0,
+              "dtype": str(dtype), "chunk_len": length, "bit_equal_chunked": bit,
+              "max_abs_err_vs_loop": err, "tol": RGLRU_TOL[dtype], "ok": ok})
+        if not ok:
+            raise SystemExit(f"rglru backward differs at {shape} h0={with_h0} {dtype}")
+        worst = max(worst, err)
     return worst
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits as integers, so that equality tells -0 from 0."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
 
 
 def flash_backward_inputs(b, h, kv, sq, skv, d, causal, window, dtype, gen):
@@ -2189,8 +2204,9 @@ def expected_train_launches(cfg) -> dict[str, int]:
     """Per train step with every block recomputed in the backward: each
     block's norms twice and final_norm once forward, each once backward;
     one flash launch per attention-kind layer, twice, and one launch of the
-    flash backward kernel; one RG-LRU scan per rec layer, twice forward and
-    once reversed for the backward; no call of the explicit flash gradient
+    flash backward kernel; one RG-LRU scan per rec layer, twice (forward
+    and recompute), and one launch of the RG-LRU backward kernel, which
+    runs no forward scan; no call of the explicit flash gradient
     on the card.  An encoder-decoder counts its encoder's blocks (two
     norms, one non-causal flash launch), its decoder's (three norms, a
     causal and a cross flash launch) and two final norms."""
@@ -2203,7 +2219,7 @@ def expected_train_launches(cfg) -> dict[str, int]:
         blocks, finals = pass_norms(cfg) - 1, 1
         flash, rec = attention_layers(cfg), cfg.layer_counts().get("rec", 0)
     return {"mandelbrot": 0, "rmsnorm": 2 * blocks + finals, "flash": 2 * flash,
-            "rglru": 3 * rec, "rmsnorm_backward": blocks + finals,
+            "rglru": 2 * rec, "rmsnorm_backward": blocks + finals,
             "rglru_backward": rec, "flash_backward": flash,
             "explicit_flash_gradient_on_cuda": 0}
 
@@ -2365,7 +2381,7 @@ def train_kernel_rows(train: dict, errs: dict, clock_hz: float) -> list[dict]:
          [lambda: rms_kernel.rms_norm_bwd_cuda(x, scale, g)] * n,
          [lambda: rms_norm_backward_reference(x, scale, g)] * n,
          [rms_library] * n, rms_bytes, rms_ops, errs["rmsnorm_backward"]),
-        ("rglru_scan_backward", "src/repro_torch/kernels/rglru/csrc/rglru.cu",
+        ("rglru_scan_backward", "src/repro_torch/kernels/rglru/csrc/rglru_bwd.cu",
          "src/repro/kernels/rglru/kernel.py:32",
          [lambda: rglru_kernel.rglru_scan_backward_cuda(a, h, None, gh, g_last)] * k_rg,
          [lambda: rglru_scan_backward_reference(a, h, None, gh, g_last)] * k_rg,
@@ -2399,6 +2415,21 @@ def train_kernel_rows(train: dict, errs: dict, clock_hz: float) -> list[dict]:
                      "blocks": rms_kernel.backward_blocks(N, rms_kernel.backward_plan(D, x.dtype)),
                      "profiled_ms_per_call_by_launch": by_launch,
                      "library_kernels_ms_per_call": profiled_launch_ms(library)}
+        else:
+            # The kernel's one launch a call, beside the construction it
+            # replaced (the forward scan kernel on flipped inputs and the
+            # PyTorch glue around it) on the same inputs, in this call.
+            construction = [lambda: rglru_scan_backward(
+                a, h, None, gh, g_last, rglru_kernel.rglru_scan_cuda)] * len(calls)
+            construction[0]()
+            torch.cuda.synchronize()
+            construction_ms, construction_paced = spun_device_ms(construction, clock_hz)
+            if construction_paced:
+                row["host_paced"].append("construction_ms")
+            extra = {"share_of_bound": row["bound_ms"] / ms,
+                     "construction_ms": construction_ms,
+                     "profiled_ms_per_call_by_launch": profiled_launch_ms(calls)}
+            row.update(extra)
         emit({"phase": "kernel_time", "kernel": name, "arch": cfg.name,
               "path": "train_full", **{k: v for k, v in row.items()
                                        if k not in ("name", "source", "replaces")},

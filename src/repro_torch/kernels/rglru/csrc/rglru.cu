@@ -66,33 +66,12 @@
 // the launch's error, or cudaGetLastError().
 
 #include <cooperative_groups.h>
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "rglru_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kWarp = 32;
-constexpr int kMaxChunksPerCta = 8;  // chunks a CTA holds, one a warp
-constexpr int kMaxCtas = 8;          // CTAs a cluster holds (the portable limit)
-constexpr int kMaxChunks = kMaxChunksPerCta * kMaxCtas;
-constexpr int kMaxThreads = 256;
-constexpr int kTile = 16;            // steps a thread loads at once
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float step(float a, float h, float b) {
-  return __fadd_rn(__fmul_rn(a, h), b);
-}
 
 // The n <= kTile steps from t of one channel into registers, all loads issued
 // before any is used.
@@ -109,10 +88,6 @@ __device__ __forceinline__ void load_tile(const TA* ap, const TB* bp, int64_t t,
     ap += W;
     bp += W;
   }
-}
-
-__device__ __forceinline__ int tile_len(int64_t t, int64_t end) {
-  return end - t < kTile ? int(end - t) : kTile;
 }
 
 // A CTA owns `stripe` channels (one a thread) of blockDim.x / stripe chunks.
@@ -136,11 +111,7 @@ rglru_kernel(const TA* __restrict__ a, const TB* __restrict__ b, const void* __r
   const TA* ap = a + row * S * W + (live ? w : W - 1);
   const TB* bp = b + row * S * W + (live ? w : W - 1);
 
-  float hv = 0.f;
-  if (live && h0_dtype == 0)
-    hv = static_cast<const float*>(h0)[row * W + w];
-  else if (live && h0_dtype == 1)
-    hv = __bfloat162float(static_cast<const __nv_bfloat16*>(h0)[row * W + w]);
+  float hv = live ? load_state(h0, h0_dtype, row * W + w) : 0.f;
 
   float av[kTile], bv[kTile];
   bool held = false;  // the chunk is one tile, already in av and bv
@@ -197,37 +168,6 @@ rglru_kernel(const TA* __restrict__ a, const TB* __restrict__ b, const void* __r
   if (live && c == C - 1) h_last[row * W + w] = hv;
 }
 
-template <typename TA, typename TB>
-int launch(const void* a, const void* b, const void* h0, void* h, float* h_last, int64_t B,
-           int64_t S, int64_t W, int h0_dtype, int64_t L, int C, int per_cta, int ctas,
-           int stripe, int64_t stripes, cudaStream_t stream) {
-  const dim3 grid = dim3(unsigned(stripes), unsigned(ctas), unsigned(B));
-  const auto* at = static_cast<const TA*>(a);
-  const auto* bt = static_cast<const TB*>(b);
-  auto* ht = static_cast<TA*>(h);
-  if (C == 1) {  // the sequential scan: no cluster, no shared memory
-    rglru_kernel<TA, TB><<<grid, stripe, 0, stream>>>(at, bt, h0, h0_dtype, ht, h_last, S, W,
-                                                      L, C, stripe);
-    return int(cudaGetLastError());
-  }
-  cudaLaunchConfig_t config = {};
-  config.gridDim = grid;
-  config.blockDim = dim3(unsigned(per_cta * stripe));
-  config.dynamicSmemBytes = size_t(per_cta + C - 1) * stripe * sizeof(float2);
-  config.stream = stream;
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = 1;
-  cluster.val.clusterDim.y = unsigned(ctas);
-  cluster.val.clusterDim.z = 1;
-  config.attrs = &cluster;
-  config.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&config, rglru_kernel<TA, TB>, at, bt, h0,
-                                             h0_dtype, ht, h_last, S, W, L, C, stripe);
-  if (err != cudaSuccess) return int(err);
-  return int(cudaGetLastError());
-}
-
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16; h0_dtype -1 means h0 is absent.  The plan
@@ -238,18 +178,13 @@ extern "C" int rglru_launch(const void* a, const void* b, const void* h0, void* 
                             void* h_last, int64_t B, int64_t S, int64_t W, int a_dtype,
                             int b_dtype, int h0_dtype, int64_t L, int C, int per_cta,
                             int ctas, int stripe, int64_t stripes, cudaStream_t stream) {
-  if (B <= 0 || B > 65535 || S < 0 || W <= 0 || stripe < kWarp || stripe % kWarp ||
-      stripes != (W + stripe - 1) / stripe || stripes > 2147483647LL)
-    return int(cudaErrorInvalidValue);
-  if (L < 1 || C < 1 || C > kMaxChunks || per_cta < 1 || per_cta > kMaxChunksPerCta ||
-      ctas < 1 || ctas > kMaxCtas || per_cta * ctas < C || per_cta * stripe > kMaxThreads ||
-      L * C < S || (C > 1 && L * (C - 1) >= S))
-    return int(cudaErrorInvalidValue);
-  if (h0_dtype < -1 || h0_dtype > 1 || (h0_dtype >= 0) != (h0 != nullptr))
+  if (!plan_ok(B, S, W, L, C, per_cta, ctas, stripe, stripes, h0, h0_dtype))
     return int(cudaErrorInvalidValue);
   auto* hl = static_cast<float*>(h_last);
-#define RGLRU_LAUNCH(TA, TB) \
-  launch<TA, TB>(a, b, h0, h, hl, B, S, W, h0_dtype, L, C, per_cta, ctas, stripe, stripes, stream)
+#define RGLRU_LAUNCH(TA, TB)                                                              \
+  launch_plan(rglru_kernel<TA, TB>, B, C, per_cta, ctas, stripe, stripes, stream,          \
+              static_cast<const TA*>(a), static_cast<const TB*>(b), h0, h0_dtype,          \
+              static_cast<TA*>(h), hl, S, W, L, C, stripe)
   if (a_dtype == 0 && b_dtype == 0) return RGLRU_LAUNCH(float, float);
   if (a_dtype == 0 && b_dtype == 1) return RGLRU_LAUNCH(float, __nv_bfloat16);
   if (a_dtype == 1 && b_dtype == 0) return RGLRU_LAUNCH(__nv_bfloat16, float);

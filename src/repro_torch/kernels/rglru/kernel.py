@@ -7,11 +7,12 @@ with ctypes and launches it on PyTorch's current stream with the plan of
 ``chunk_plan``.  ``LAUNCHES`` counts the launches (one a call), so a run can
 show that its work went through the kernel.
 
-The gradient needs no kernel of its own: the adjoint of the recurrence is
-the same recurrence run backwards, so ``rglru_scan_backward_cuda`` launches
-this kernel once on reversed inputs (``ref.rglru_scan_backward``).
-``BACKWARD_LAUNCHES`` counts those calls; each is also one of
-``LAUNCHES``.
+The gradient is ``csrc/rglru_bwd.cu`` (the TPU kernel had none): the
+adjoint recurrence, the same chunked scan run from the end of S over the
+same plan, one launch a call that reads a, h and gh in place and writes da,
+db and dh0.  It is built and bound the same way (``load_backward``), and
+the two sources share ``csrc/rglru_common.cuh``.  ``BACKWARD_LAUNCHES``
+counts its launches.
 """
 
 from __future__ import annotations
@@ -25,9 +26,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels._build import load_library
-from repro_torch.kernels.rglru.ref import rglru_scan_backward
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru.cu"
+BACKWARD_SOURCE = SOURCE.with_name("rglru_bwd.cu")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 NO_H0 = -1  # the dtype code that says h0 is absent (zeros)
 MAX_BATCH = 65535  # the grid's z dimension
@@ -134,14 +135,72 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
     return h, h_last
 
 
+@functools.cache
+def load_backward() -> ctypes.CDLL:
+    """Build (first call only) and bind the backward kernel's library."""
+    lib = load_library(BACKWARD_SOURCE)
+    fn = lib.rglru_bwd_launch
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.argtypes = [ptr] * 8 + [i64, i64, i64, i32, i32, i64, i32, i32, i32, i32,
+                               i64, ptr]
+    fn.restype = ctypes.c_int
+    lib.rglru_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.rglru_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def rglru_scan_backward_cuda(a: torch.Tensor, h: torch.Tensor,
                              h0: torch.Tensor | None, gh: torch.Tensor,
                              g_last: torch.Tensor):
-    """Gradient of ``rglru_scan_cuda`` (``ref.rglru_scan_backward``) with the
-    reversed scan on this kernel: (da, db, dh0), da and db in f32."""
+    """Gradient of ``rglru_scan_cuda`` at (a, h0) given every h it produced,
+    for upstream gradients ``gh`` (of h) and ``g_last`` (of h_last): a, h
+    and gh [B, S, W] contiguous CUDA tensors of one dtype (f32 or bf16),
+    g_last [B, W] f32, h0 [B, W] f32 or bf16 or None.
+    Returns (da, db) in f32 and dh0 in h0's dtype (or None), bit for bit
+    ``ref.rglru_scan_backward_chunked`` at ``chunk_plan(S, W).length``."""
     global BACKWARD_LAUNCHES
-    out = rglru_scan_backward(a, h, h0, gh, g_last, rglru_scan_cuda)
-    if a.shape[1]:
-        with _count_lock:
-            BACKWARD_LAUNCHES += 1
-    return out
+    _check("a", a, 3)
+    _check("h", h, 3)
+    _check("gh", gh, 3)
+    B, S, W = a.shape
+    for name, t in (("h", h), ("gh", gh)):
+        if t.shape != a.shape or t.dtype != a.dtype or t.device != a.device:
+            raise ValueError(
+                f"{name} must have a's shape {tuple(a.shape)}, dtype {a.dtype} "
+                f"and device {a.device}, got {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}")
+    _check("g_last", g_last, 2)
+    if (g_last.dtype != torch.float32 or g_last.shape != (B, W)
+            or g_last.device != a.device):
+        raise ValueError(
+            f"g_last must be float32 [{B}, {W}] on {a.device}, got {g_last.dtype} "
+            f"{tuple(g_last.shape)} on {g_last.device}")
+    if h0 is not None:
+        _check("h0", h0, 2)
+        if h0.shape != (B, W) or h0.device != a.device:
+            raise ValueError(
+                f"h0 must be [{B}, {W}] on {a.device}, got {tuple(h0.shape)} "
+                f"on {h0.device}")
+    if B > MAX_BATCH:
+        raise ValueError(f"at most {MAX_BATCH} rows, got {B}")
+    da = torch.empty((B, S, W), dtype=torch.float32, device=a.device)
+    db = torch.empty((B, S, W), dtype=torch.float32, device=a.device)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    if S == 0 or B == 0 or W == 0:  # nothing reaches h0 (the construction's zeros)
+        return da, db, None if dh0 is None else dh0.zero_()
+    plan = chunk_plan(S, W)
+    lib = load_backward()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rglru_bwd_launch(
+            a.data_ptr(), h.data_ptr(), gh.data_ptr(), g_last.data_ptr(),
+            None if h0 is None else h0.data_ptr(), da.data_ptr(), db.data_ptr(),
+            None if dh0 is None else dh0.data_ptr(), B, S, W, DTYPE_CODES[a.dtype],
+            NO_H0 if h0 is None else DTYPE_CODES[h0.dtype], *plan, stream)
+    if err != 0:
+        raise RuntimeError(
+            "rglru backward kernel launch failed: "
+            + lib.rglru_bwd_error_string(err).decode())
+    with _count_lock:
+        BACKWARD_LAUNCHES += 1
+    return da, db, dh0

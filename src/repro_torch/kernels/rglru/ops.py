@@ -6,9 +6,11 @@ masks a ragged W itself, so no padding is needed (the JAX package's
 ``ops.rglru_scan`` pads W to its 128-lane blocks).
 
 Where a gradient is wanted, the call goes through ``RGLRUScanFunction``: its
-backward is the adjoint recurrence (``ref.rglru_scan_backward``), run by the
-same scan on reversed inputs: the plain version on CPU tensors and the
-CUDA kernel on CUDA tensors, so the backward needs no kernel of its own.
+backward is the adjoint recurrence.  On CPU tensors that is the plain
+version, ``ref.rglru_scan_backward`` over the sequential scan run on
+reversed inputs; on CUDA tensors the backward kernel
+(``kernel.rglru_scan_backward_cuda``, one launch), which computes the same
+construction over the chunked scan bit for bit without reversing anything.
 Without autograd (serving), the scan is called directly.
 
 The scan and its backward are ``torch.library`` custom ops
@@ -58,7 +60,9 @@ def _scan_backward_impl(a: torch.Tensor, h: torch.Tensor,
         da, db, dh0 = rglru_scan_backward(a, h, h0, gh, g_last,
                                           rglru_scan_reference)
     else:
-        da, db, dh0 = rglru_scan_backward_cuda(a, h, h0, gh, g_last)
+        da, db, dh0 = rglru_scan_backward_cuda(
+            a.contiguous(), h.contiguous(), None if h0 is None else h0.contiguous(),
+            gh.contiguous(), g_last.float().contiguous())
     return da, db, a.new_empty((0,)) if dh0 is None else dh0
 
 

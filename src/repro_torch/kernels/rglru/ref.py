@@ -1,7 +1,10 @@
 """Plain PyTorch versions of the RG-LRU scan: the JAX package's
 ``rglru_scan_reference``, the sequential recurrence
 ``h_t = a_t * h_{t-1} + b_t`` with a float32 carry; and
-``rglru_scan_chunked``, the CUDA kernel's order of operations."""
+``rglru_scan_chunked``, the CUDA kernel's order of operations.  Of its
+gradient: ``rglru_scan_backward`` (the adjoint as a scan on reversed
+inputs), ``rglru_scan_backward_chunked`` (the backward kernel's order) and
+``rglru_scan_backward_reference`` (an explicit reverse loop)."""
 
 from __future__ import annotations
 
@@ -96,6 +99,13 @@ def rglru_scan_backward(a: torch.Tensor, h: torch.Tensor,
     db = g, da_t = g_t * h_{t-1} and dh0 = a_0 * g_0.  Returns (da, db, dh0)
     in f32 (dh0 in h0's type, or None), the dtypes of a and b left to the
     caller.
+
+    Over ``rglru_scan_reference`` this is the CPU path's gradient; over
+    ``rglru_scan_chunked`` at ``kernel.chunk_plan(S, W).length`` it is the
+    plain version of what the card computes: the backward kernel
+    (``csrc/rglru_bwd.cu``) equals it bit for bit, as does
+    ``rglru_scan_backward_chunked``, which takes the kernel's order without
+    reversing any tensor.
     """
     B, S, W = a.shape
     if S == 0:
@@ -108,6 +118,54 @@ def rglru_scan_backward(a: torch.Tensor, h: torch.Tensor,
     g_rev, _ = scan(coeff.flip(1).contiguous(), gh.float().flip(1).contiguous(),
                     g_last.float().contiguous())
     return _grads(a, h, h0, g_rev.flip(1).float())
+
+
+def rglru_scan_backward_chunked(a: torch.Tensor, h: torch.Tensor,
+                                h0: torch.Tensor | None, gh: torch.Tensor,
+                                g_last: torch.Tensor, chunk: int):
+    """The gradient as the backward kernel computes it, with chunks of
+    ``chunk`` steps counted from the end of S: reversed chunk k holds the
+    steps t = S-1-k*chunk down to max(0, S-(k+1)*chunk), each with the
+    coefficient a_{t+1} (1 at t = S-1) and the input gh_t.  Each chunk's
+    (A = prod of its coefficients, l = its reverse scan from 0); g carried
+    across chunks in reversed order from g_last, g_in(k) = A(k-1) *
+    g_in(k-1) + l(k-1); each chunk rescanned from g_in.  Every product and
+    sum is rounded on its own, in the order of ``rglru_scan_backward`` over
+    ``rglru_scan_chunked`` at the same chunk, so the two are equal bit for
+    bit.  Same arguments (and ``chunk``) and results as
+    ``rglru_scan_backward``."""
+    B, S, W = a.shape
+    if S == 0:
+        return torch.zeros_like(a, dtype=torch.float32), \
+            torch.zeros_like(a, dtype=torch.float32), \
+            None if h0 is None else torch.zeros_like(h0)
+    C = -(-S // chunk)
+    # Step k of reversed chunk c is t = S-1-(c*chunk + k); t < 0 pads the last
+    # chunk with coefficients 1 and inputs 0, past t = 0: they change neither
+    # any g_t nor a carried pair (the last chunk's pair is never carried).
+    t = S - 1 - torch.arange(C * chunk, device=a.device).view(C, chunk)
+    af, gf = a.float(), gh.float()
+    coeff = torch.where(((t >= 0) & (t + 1 < S))[..., None],
+                        af[:, (t + 1).clamp(0, S - 1)], 1.0)
+    x = torch.where((t >= 0)[..., None], gf[:, t.clamp(min=0)], 0.0)
+    A = torch.ones((B, C, W), dtype=torch.float32, device=a.device)
+    l = torch.zeros((B, C, W), dtype=torch.float32, device=a.device)
+    for k in range(chunk):
+        A = A * coeff[:, :, k]
+        l = coeff[:, :, k] * l + x[:, :, k]
+    g = g_last.float()
+    g_in = [g]
+    for c in range(C - 1):
+        g = A[:, c] * g + l[:, c]
+        g_in.append(g)
+    g = torch.stack(g_in, 1)
+    gs = torch.empty((B, C, chunk, W), dtype=torch.float32, device=a.device)
+    for k in range(chunk):
+        g = coeff[:, :, k] * g + x[:, :, k]
+        gs[:, :, k] = g
+    # Reversed step s = S-1-t holds g_t.
+    s = S - 1 - torch.arange(S, device=a.device)
+    return _grads(a, h, h0, gs.view(B, C * chunk, W)[:, s])
 
 
 def rglru_scan_backward_reference(a: torch.Tensor, h: torch.Tensor,

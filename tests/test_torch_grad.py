@@ -8,8 +8,9 @@ formulas the card's kernels are held against), and its gradients must be
 within 1e-5 of JAX's: ``layers.rms_norm``, ``attention.attention`` and
 ``recurrent.rglru_scan`` of the JAX package (1e-5 is the tolerance of the
 reference's own RG-LRU test).  The RG-LRU backward's flip construction over
-``rglru_scan_chunked`` (what the card runs, bit for bit) must also agree
-with the explicit reverse loop.
+``rglru_scan_chunked`` must also agree with the explicit reverse loop, and
+``rglru_scan_backward_chunked`` (the backward kernel's order, which the card
+equals bit for bit) must equal that construction bit for bit.
 """
 
 import dataclasses
@@ -31,9 +32,12 @@ from repro.models import xlstm as jax_xlstm
 from repro.models.common import init_params as jax_init_params
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels.flash_attention.ops import FlashAttentionFunction
+from repro_torch.kernels.rglru import kernel as rglru_kernel
+from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.kernels.rglru.ops import RGLRUScanFunction
 from repro_torch.kernels.rglru.ref import (
     rglru_scan_backward,
+    rglru_scan_backward_chunked,
     rglru_scan_backward_reference,
     rglru_scan_chunked,
     rglru_scan_reference,
@@ -200,6 +204,69 @@ def test_rglru_flip_construction_equals_the_reverse_loop(s, with_h0):
         assert torch.equal(q, l_)
         if s <= 16:
             assert torch.equal(c, l_)
+
+
+def _bits(t):
+    """``t``'s bits as integers: equality then tells -0 from 0."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,w,chunk", [
+    *((2, s, 24, 16) for s in (0, 1, 15, 16, 17, 53, 300)),
+    (1, 2048, 24, rglru_kernel.chunk_plan(2048, 24).length),
+])
+def test_rglru_backward_chunked_equals_the_flip_construction(b, s, w, chunk, with_h0,
+                                                             dtype):
+    """The backward kernel's order (reversed chunks counted from the end of
+    S, the carry, the rescan; nothing flipped) is the flip construction over
+    ``rglru_scan_chunked`` at the same chunk bit for bit, signed zeros
+    included: chunk 16 (the plan's L up to S = 1,024) around one and several
+    chunks, and the training path's S = 2,048 at its plan's L (32)."""
+    gen = torch.Generator().manual_seed(s)
+    a = (0.5 + 0.499 * torch.rand(b, s, w, generator=gen)).to(dtype)
+    x = torch.randn(b, s, w, generator=gen).to(dtype)
+    h0 = torch.randn(b, w, generator=gen).to(dtype) if with_h0 else None
+    h, _last = rglru_scan_chunked(a, x, h0, chunk)
+    gh = torch.randn(b, s, w, generator=gen).to(dtype)
+    gl = torch.randn(b, w, generator=gen)
+    gh[:, -3:, :4] = -0.0  # zeros whose sign the order decides
+    gl[:, :2] = -0.0
+    want = rglru_scan_backward(a, h, h0, gh, gl,
+                               functools.partial(rglru_scan_chunked, chunk=chunk))
+    got = rglru_scan_backward_chunked(a, h, h0, gh, gl, chunk)
+    for g, w_ in zip(got, want):
+        if w_ is None:
+            assert g is None
+            continue
+        assert g.dtype == w_.dtype and g.shape == w_.shape
+        assert torch.equal(_bits(g), _bits(w_))
+
+
+@pytest.mark.parametrize("call", [
+    lambda t, b, g: rglru_kernel.rglru_scan_backward_cuda(t, t, None, t, g),
+    lambda t, b, g: rglru_kernel.rglru_scan_backward_cuda(t, t, b, t, g),
+    lambda t, b, g: rglru_ops._scan_backward_impl(t.to("meta"), t.to("meta"), None,
+                                                  t.to("meta"), g.to("meta")),
+], ids=["cpu", "cpu_h0", "op_off_cpu"])
+def test_rglru_backward_cuda_refuses_non_cuda_tensors_before_building(call, monkeypatch):
+    """The backward kernel's wrapper raises ValueError on a tensor that is
+    not on a CUDA device before it builds or launches anything, and the
+    op's implementation hands a tensor off the CPU to it, never to a plain
+    version."""
+    def must_not_run(*_a, **_k):
+        raise AssertionError("reached past the wrapper's checks")
+
+    monkeypatch.setattr(rglru_kernel, "load_backward", must_not_run)
+    monkeypatch.setattr(rglru_kernel, "load_library", must_not_run)
+    monkeypatch.setattr(rglru_ops, "rglru_scan_backward", must_not_run)
+    before = (rglru_kernel.LAUNCHES, rglru_kernel.BACKWARD_LAUNCHES)
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.zeros(2, 17, 32, dtype=dtype)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call(t, torch.zeros(2, 32, dtype=dtype), torch.zeros(2, 32))
+    assert (rglru_kernel.LAUNCHES, rglru_kernel.BACKWARD_LAUNCHES) == before
 
 
 def test_rglru_function_gradients_for_a_b_h0():
