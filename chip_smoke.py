@@ -52,7 +52,10 @@ source, all at once) and drives the port's paths on the card:
    then ``make_train_step`` at recurrentgemma-2b's full width and depth
    (26 layers, bf16 compute, f32 parameters and AdamW state, B 1 x S 2048),
    where each step's kernel launches are counted (no training phase may
-   call the explicit flash gradient on the card).
+   call the explicit flash gradient on the card); then the same step under
+   ``remat_policy="dots"``: one forward and backward under each policy
+   from the same parameters, bit for bit equal, and timed steps with their
+   launches (the same as under ``"nothing"``), device time and peak memory.
 5. The other block families, at full width: olmoe-1b-7b (MoE, 64 experts
    top-8) cut to 2 layers in float32 (engine == offline greedy), then
    served at full depth in bf16 with its prompts' drop fractions and a
@@ -60,7 +63,8 @@ source, all at once) and drives the port's paths on the card:
    and dispatch, expert products and the rest; llama4-maverick cut to one
    period (attn, moe) in bf16 (engine == offline greedy); xlstm-350m cut to
    one mLSTM and one sLSTM layer in float32 (engine == offline greedy),
-   then served at full depth in bf16 and trained 2 steps; olmoe-1b-7b
+   then served at full depth in bf16 and trained 2 steps at 8 of its 24
+   layers; olmoe-1b-7b
    trained at 6 layers under deterministic algorithms (a replayed forward
    and backward bit for bit); seamless-m4t-large-v2 cut to 4 + 4 layers
    in float32 (greedy decode steps == the full forward within 2e-4), then
@@ -76,7 +80,9 @@ source, all at once) and drives the port's paths on the card:
    allocation) and run on DTensor parameters from ``init_params(...,
    rules=)``, its loss and grad norm equal to part 4's unsharded steps,
    its launches exact, its predicted memory and traced FLOPs beside the
-   measured peak and the analytic model FLOPs (MFU); yi-9b served through
+   measured peak and the analytic model FLOPs (MFU); olmoe-1b-7b cut to 2
+   layers under ``"dots"``, one forward and backward on DTensors through
+   the expert-parallel MoE path, bit for bit the plain pass; yi-9b served through
    ``ServingEngine(rules=decode_rules(mesh))`` beside the engine without
    rules (tokens equal; a float32 depth cut equal to offline greedy); the
    padded tp = 16 plans of phi3-medium-14b (grouped, 48 / 12 heads) and
@@ -167,6 +173,7 @@ from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
 )
 from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import recurrent as rec_mod  # noqa: E402
 from repro_torch.models.common import count_params, init_params  # noqa: E402
 from repro_torch.core.dsl import parse_cgpp  # noqa: E402
@@ -339,6 +346,10 @@ FLASH_LSE_TOL = 1e-5
 TRAINER_SEQ, TRAINER_BATCH, TRAINER_STEPS = 64, 4, 8
 TRAINER_CKPT_EVERY, TRAINER_CRASH_AT, TRAINER_TOL = 3, 5, 1e-4
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2048, 1, 3
+# train_full_dots: timed steps under remat_policy="dots", and the kernel
+# names its profile counts as the cuBLAS products.
+DOTS_STEPS = 2
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 
 # The other block families, after the training phases, all at full width.
 # olmoe-1b-7b: a 2-layer float32 check at the config's capacity factor of
@@ -347,7 +358,8 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2048, 1, 3
 # engine with one slot against offline greedy: a batch-1 tick rounds as the
 # offline decode does, where bf16 batch-4 ticks would not.  xlstm-350m: a
 # check cut to one mLSTM and one sLSTM layer in float32, then full depth in
-# bf16, and 2 train steps.  olmoe-1b-7b trained at 6 of 16 layers (f32
+# bf16, and 2 train steps at 8 of 24 layers (at full depth the sLSTM's
+# loop took 96 s of the script's time).  olmoe-1b-7b trained at 6 of 16 layers (f32
 # state of full depth, about 111 GB, is more than the card holds).
 # seamless-m4t-large-v2: a 4 + 4-layer float32 check, then full depth in
 # bf16 and one train step.  internvl2-2b: full depth, trained with its 256
@@ -358,6 +370,7 @@ MOE_CHECK_LAYERS, MAVERICK_LAYERS, MOE_TRAIN_LAYERS = 2, 2, 6
 MAVERICK_REQUESTS, MAVERICK_PROMPT, MAVERICK_MAX_SEQ = 4, (64, 513), 1024
 XLSTM_CHECK_PATTERN = ("mlstm", "slstm")
 XLSTM_TRAIN_STEPS, MOE_TRAIN_STEPS, VLM_TRAIN_STEPS = 2, 3, 2
+XLSTM_TRAIN_LAYERS = 8  # of 24: two periods of (mlstm x 3, slstm)
 ENCDEC_CHECK_LAYERS, ENCDEC_CHECK_FRAMES, ENCDEC_CHECK_TOKENS = 4, 64, 12
 ENCDEC_TOL = 2e-4  # tests/test_archs.py::test_encdec_decode_matches_forward
 ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_NEW, ENCDEC_TRAIN_SEQ = 2, 1024, 32, 1024
@@ -368,6 +381,7 @@ ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_NEW, ENCDEC_TRAIN_SEQ = 2, 1024, 32, 1024
 # shards).  tp_plan: the padded plans at tp 16 in float32, logits within
 # TP_TOL (tests/test_archs.py's padding tolerance) of tp 1's.
 SPMD_TOL = 1e-6
+MOE_SPMD_LAYERS = 2
 PHI3 = "phi3-medium-14b"
 TP_PLAN, TP_TOL = 16, 2e-4
 TP_PLAN_PROMPT, TP_PLAN_NEW, TP_PLAN_MAX_SEQ = 256, 8, 512
@@ -2313,11 +2327,96 @@ def train_full() -> dict:
                                      "f32": 0}):
         raise SystemExit(f"bf16 training ran flash launches {flash_variants}, "
                          f"backward {backward_variants}")
+    train = {"cfg": cfg, "launches": launches, "mean_step_ms": mean_ms,
+             "device_ms": device_ms, "first_loss": first_loss, "steps": rows,
+             "peak_memory_gb": peak_gb, "gemm_ms": gemm_ms(kernel_us)}
+    train_full_dots(train, params, opt_state, pipe, expected)
     del params, opt_state
     torch.cuda.empty_cache()
-    return {"cfg": cfg, "launches": launches, "mean_step_ms": mean_ms,
-            "device_ms": device_ms, "first_loss": first_loss, "steps": rows,
-            "peak_memory_gb": peak_gb}
+    return train
+
+
+def gemm_ms(kernel_us: dict[str, float]) -> float:
+    """The device ms of a profile's cuBLAS products (by kernel name)."""
+    return sum(us for name, us in kernel_us.items()
+               if any(w in name for w in GEMM_NAMES)) / 1e3
+
+
+def train_full_dots(train: dict, params, opt_state, pipe, expected: dict) -> None:
+    """``train_full``'s step under ``remat_policy="dots"``, from its
+    parameters, optimizer state and batches.  Under deterministic
+    algorithms, one forward and backward under each policy: the loss's and
+    every gradient's bits must be equal, and each pass's launches the
+    expected ones (every kernel is still recomputed; only the recompute's
+    weight products are saved instead).  Then DOTS_STEPS timed steps under
+    "dots", their launches checked step by step and their peak memory from
+    a reset before them, and one more under the profiler."""
+    cfg = dataclasses.replace(train["cfg"], remat_policy="dots")
+    batch = pipe.get(TRAIN_STEPS + 2)
+    prints, passes = {}, {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for c in (train["cfg"], cfg):
+            reset_launches()
+            prints[c.remat_policy] = grad_fingerprint(c, params, batch)
+            passes[c.remat_policy] = current_launches()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = prints["nothing"] == prints["dots"]
+    step_fn = steps_mod.make_train_step(cfg, adamw.AdamWConfig(), peak_lr=3e-4,
+                                        warmup_steps=2,
+                                        total_steps=TRAIN_STEPS + DOTS_STEPS + 4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for step in range(TRAIN_STEPS + 3, TRAIN_STEPS + 3 + DOTS_STEPS):
+        batch = pipe.get(step)
+        before = current_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch, step)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        after = current_launches()
+        rows.append({"step": step, "loss": loss, "grad_norm": float(m["grad_norm"]),
+                     "ms": ms, "launches": {k: after[k] - before[k] for k in after}})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = pipe.get(TRAIN_STEPS + 3 + DOTS_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        params, opt_state, m = step_fn(params, opt_state, batch,
+                                       TRAIN_STEPS + 3 + DOTS_STEPS)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    kernel_us, kernels, _spans = device_events(prof)
+    device_ms = sum(kernel_us.values()) / 1e3
+    mean_ms = statistics.mean(r["ms"] for r in rows)
+    emit({"phase": "train_full_dots", "arch": cfg.name, "remat_policy": cfg.remat_policy,
+          "deterministic_algorithms_for_the_bits": True,
+          "loss_bits_equal": prints["nothing"][0] == prints["dots"][0],
+          "gradient_checksums_equal": prints["nothing"][1] == prints["dots"][1],
+          "leaves": len(prints["dots"][1]), "launches_per_pass": passes,
+          "steps": rows, "mean_step_ms": mean_ms,
+          "nothing_mean_step_ms": train["mean_step_ms"],
+          "peak_memory_gb": peak_gb, "nothing_peak_memory_gb": train["peak_memory_gb"],
+          "profiled_step_device_ms": device_ms,
+          "nothing_profiled_step_device_ms": train["device_ms"],
+          "profiled_step_kernels": kernels,
+          "gemm_device_ms": gemm_ms(kernel_us), "nothing_gemm_device_ms": train["gemm_ms"],
+          "expected_launches_per_step": expected, "ok": same})
+    if not same:
+        raise SystemExit("train_full_dots: the loss or a gradient differs between "
+                         "remat policies")
+    for policy, got in passes.items():
+        if got != expected:
+            raise SystemExit(f"train_full_dots: a {policy} pass launched {got} != "
+                             f"expected {expected}")
+    for r in rows:
+        if r["launches"] != expected or not math.isfinite(r["loss"]):
+            raise SystemExit(f"train_full_dots step {r['step']}: {r}")
 
 
 def rms_backward_library(x, scale, g):
@@ -2674,26 +2773,33 @@ def train_steps(cfg, batches, steps: int, phase: str, **extra) -> dict:
 
 
 def train_xlstm() -> dict:
-    cfg = get_config(XLSTM)
+    cfg = cut(XLSTM, XLSTM_TRAIN_LAYERS, compute_dtype=get_config(XLSTM).compute_dtype)
     pipe = DataPipeline(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0), "cuda")
-    launches = train_steps(cfg, pipe.get, XLSTM_TRAIN_STEPS, "train_xlstm")["launches"]
+    launches = train_steps(cfg, pipe.get, XLSTM_TRAIN_STEPS, "train_xlstm",
+                           depth_cut=f"{XLSTM_TRAIN_LAYERS} of "
+                                     f"{get_config(XLSTM).num_layers} layers")["launches"]
     torch.cuda.empty_cache()
     return train_path("train_xlstm", cfg, TRAIN_BATCH, TRAIN_SEQ, XLSTM_TRAIN_STEPS,
                       launches)
 
 
-def grad_fingerprint(cfg, params, batch) -> tuple[bytes, list[int]]:
+def grad_fingerprint(cfg, params, batch, rules=None) -> tuple[bytes, list[int]]:
     """The loss's bits and a checksum of every gradient's bits, for one
-    forward and backward of ``batch`` from ``params``."""
+    forward and backward of ``batch`` from ``params`` (with ``rules``:
+    DTensors on a one-card mesh, whose local shards are the whole
+    tensors)."""
     leaves = adamw.tree_leaves(params)
     for leaf in leaves:
         leaf.requires_grad_(True)
     try:
-        loss, _m = steps_mod.loss_fn_for(cfg)(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        with lm.spmd(rules):
+            loss, _m = steps_mod.loss_fn_for(cfg, 1, rules)(params, batch)
+            grads = torch.autograd.grad(loss, leaves)
     finally:
         for leaf in leaves:
             leaf.requires_grad_(False)
+    if rules is not None:
+        loss, grads = loss.to_local(), [g.to_local() for g in grads]
     sums = [int(g.view(torch.int32).sum(dtype=torch.int64)) for g in grads]
     return loss.detach().cpu().numpy().tobytes(), sums
 
@@ -3331,10 +3437,78 @@ def dryrun_phase() -> None:
     shutil.rmtree(out, ignore_errors=True)
 
 
+def spmd_train_moe(mesh) -> None:
+    """olmoe-1b-7b at full width cut to MOE_SPMD_LAYERS layers, bf16
+    compute, f32 parameters, under ``remat_policy="dots"`` and
+    deterministic algorithms: one forward and backward of a B 1 x S 2048
+    batch on plain tensors, then on DTensors placed by ``training_rules``
+    over the one-card mesh, where the MoE FFN takes the expert-parallel
+    path (``_shard.run_split``; one card holds every expert, so there is no
+    slot sum to make).  Loss and gradient bits must be equal, and each
+    pass's launches the expected ones."""
+    cfg = cut(OLMOE, MOE_SPMD_LAYERS, compute_dtype="bfloat16", remat_policy="dots")
+    rules = training_rules(mesh)
+    specs = lm.lm_param_specs(cfg, 1)
+    params = init_params(specs, 0, "cuda", torch.float32)
+    source = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    splits = []
+    core = moe_mod._moe_core
+
+    def recorded(x, p, **kw):
+        part = kw.get("part")
+        splits.append(None if part is None else (part.offset, part.size, part.dims))
+        return core(x, p, **kw)
+
+    prints, passes, secs = {}, {}, {}
+    moe_mod._moe_core = recorded
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, args in (
+                ("plain", (params, DataPipeline(source, "cuda").get(0))),
+                ("expert_parallel", (placed(specs, params, rules),
+                                     DataPipeline(source, "cuda", rules).get(0), rules))):
+            reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            prints[name] = grad_fingerprint(cfg, *args)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t
+            passes[name] = current_launches()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        moe_mod._moe_core = core
+    expected = expected_train_launches(cfg)
+    # forward and recompute, per MoE layer: plain, then the split path
+    want_splits = ([None] * 2 * MOE_SPMD_LAYERS
+                   + [(0, cfg.num_experts, ())] * 2 * MOE_SPMD_LAYERS)
+    same = prints["plain"] == prints["expert_parallel"]
+    emit({"phase": "spmd_train_moe", "arch": cfg.name, "num_layers": cfg.num_layers,
+          "depth_cut": f"{MOE_SPMD_LAYERS} of {get_config(OLMOE).num_layers} layers",
+          "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+          "remat_policy": cfg.remat_policy, "compute_dtype": cfg.compute_dtype,
+          "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "num_experts": cfg.num_experts,
+          "splits_seen": sorted({str(s) for s in splits}),
+          "loss_bits_equal": prints["plain"][0] == prints["expert_parallel"][0],
+          "gradient_checksums_equal": prints["plain"][1] == prints["expert_parallel"][1],
+          "leaves": len(prints["plain"][1]), "pass_s": secs,
+          "launches_per_pass": passes, "expected_launches_per_pass": expected,
+          "ok": same and splits == want_splits})
+    if not same:
+        raise SystemExit("spmd_train_moe: the expert-parallel pass differs from the plain one")
+    if splits != want_splits:
+        raise SystemExit(f"spmd_train_moe: the MoE FFN ran as {splits}, not {want_splits}")
+    for name, got in passes.items():
+        if got != expected:
+            raise SystemExit(f"spmd_train_moe {name}: launches {got} != {expected}")
+    del params
+    torch.cuda.empty_cache()
+
+
 def spmd_phases(train: dict) -> None:
     """Part 6, each phase's launches counted from zero where it checks them."""
     mesh = make_smoke_mesh(1, 1, "cuda")
     spmd_train(mesh, train)
+    spmd_train_moe(mesh)
     spmd_serve(mesh)
     tp_plan()
     dryrun_phase()

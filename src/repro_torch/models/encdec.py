@@ -21,7 +21,6 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -45,6 +44,7 @@ from repro_torch.models.lm import (
     _unstack,
     _write_kv,
     head_plan,
+    run_block,
     spmd,
 )
 
@@ -177,10 +177,11 @@ def _dec_block(cfg, p, x, enc_out, pos_q, pos_enc, tp=1, rules=None,
 
 def _run_blocks(cfg, params, blocks, n, x, block):
     """``block(x, p)`` over the ``n`` stacked layers of ``blocks`` in order,
-    each recomputed in the backward under ``cfg.remat`` (as ``lm``)."""
+    each recomputed in the backward under ``cfg.remat`` and
+    ``cfg.remat_policy`` (as ``lm``)."""
     remat = _remat(cfg, params)
     for p in _unstack(blocks, n):
-        x = checkpoint(block, x, p, use_reentrant=False) if remat else block(x, p)
+        x = run_block(remat, block, x, p)
     return x
 
 

@@ -51,8 +51,12 @@ def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor, compute_dtype):
         if torch.is_grad_enabled() and embedding.requires_grad:
             return _embed_local(embedding, tokens, compute_dtype)
         # without a gradient: DTensor's vocab-parallel lookup (each shard
-        # reads its rows of the table; the rows are summed), no gather
-        return F.embedding(tokens, embedding).to(compute_dtype)
+        # reads its rows of the table; the rows are summed), no gather of
+        # the vocab.  The table's d_model shards are gathered first: with
+        # them, the mask of a token shard met the gathered output's rows.
+        table = embedding.redistribute(embedding.device_mesh,
+                                       _shard.keep_shards(embedding, (0,)))
+        return F.embedding(tokens, table).to(compute_dtype)
     # index_select, whose gradient on the card is deterministic under
     # torch.use_deterministic_algorithms (a replayed step gives the same bits)
     rows = torch.index_select(embedding, 0, tokens.reshape(-1))

@@ -12,8 +12,11 @@ MLP where ``d_ff > 0``; the Griffin recurrent kind ``rec``
 Parameters are the JAX package's tree: per block kind, each leaf is stacked
 ``[count, ...]`` over that kind's layers.  Layers run as a plain Python
 loop (no scan).  Under autograd with ``cfg.remat`` (the default), each
-block is recomputed in the backward (``torch.utils.checkpoint``): the JAX
-package's ``remat_policy="nothing"``; its ``"dots"`` policy is not ported.
+block is recomputed in the backward (``torch.utils.checkpoint``) under the
+JAX package's ``cfg.remat_policy``: ``"nothing"`` keeps only the block's
+inputs; ``"dots"`` (selective checkpointing, ``dots_policy``) also keeps
+the output of every product of an activation with a weight and recomputes
+the rest, the kernels included.
 Every block calls the fused RMS norm for ``ln1`` (and ``ln2`` where it has
 one) and the forward ends in ``final_norm``; the prompt's attention goes
 through the flash-attention entry point and a ``rec`` block's recurrence
@@ -39,12 +42,17 @@ masks) join as replicated (``spmd``).  The kernels run on local shards
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Any
 
 import torch
 from torch.profiler import record_function
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig, padded_size
 from repro_torch.device import resolve_device
@@ -475,15 +483,49 @@ def _requires_grad(tree) -> bool:
     return tree.requires_grad
 
 
-def _remat(cfg: ModelConfig, params) -> bool:
-    """Whether blocks are recomputed in the backward: under autograd only."""
+# The weight products: every one of the port is written ``activation @
+# weight``, which dispatches ``aten.mm`` (``addmm`` with a bias).  A product
+# with batch dims (an einsum, ``bmm``) dispatches neither.
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The JAX package's ``dots_with_no_batch_dims_saveable``: keep the
+    output of every product with no batch dims, recompute everything else
+    (batched products, elementwise ops, the kernels' ops)."""
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_policy(cfg: ModelConfig) -> dict:
+    """``checkpoint``'s arguments for ``cfg.remat_policy`` (the JAX
+    package's ``_remat_policy``, which takes any other name for
+    ``"nothing"``; here it is an error)."""
+    if cfg.remat_policy == "nothing":
+        return {}
+    if cfg.remat_policy == "dots":
+        return {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, dots_policy)}
+    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}: "
+                     f"\"nothing\" or \"dots\"")
+
+
+def _remat(cfg: ModelConfig, params) -> dict | None:
+    """The ``checkpoint`` arguments the blocks are recomputed under in the
+    backward (``_remat_policy``), or None where no block is: outside
+    autograd, or without ``cfg.remat``."""
+    policy = _remat_policy(cfg)
     if not (cfg.remat and torch.is_grad_enabled() and _requires_grad(params)):
-        return False
-    if cfg.remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r} is not ported; the port "
-            f"recomputes whole blocks (\"nothing\")")
-    return True
+        return None
+    return policy
+
+
+def run_block(remat: dict | None, block, *args):
+    """``block(*args)``, recomputed in the backward under ``remat`` (what
+    ``_remat`` returned) where it is not None."""
+    if remat is None:
+        return block(*args)
+    return checkpoint(block, *args, use_reentrant=False, **remat)
 
 
 def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor,
@@ -514,8 +556,7 @@ def _forward_hidden(cfg, params, tokens, extra_embeds, tp, rules):
             x, _state, aux = apply_block(cfg, kind, p, x, positions, tp=tp,
                                          rules=rules)
             return x, aux
-        x, aux = (checkpoint(block, x, p, use_reentrant=False) if remat
-                  else block(x, p))
+        x, aux = run_block(remat, block, x, p)
         for k, v in aux.items():
             aux_total[k] = aux_total[k] + v
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

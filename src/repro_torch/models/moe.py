@@ -21,6 +21,17 @@ accumulate, gathers by advanced indexing (whose gradient is an
 accumulating ``index_put``), ``argsort(stable=True)`` and ``cumsum`` over
 integers.
 
+Expert parallelism (the JAX package's): under sharding rules the expert
+weights are split over the ``model`` mesh axis and the activations are
+replicated on it.  Each rank routes its batch rows as a lone device would
+(the same routing on every ``model`` rank), scatters only the slots of its
+own experts, runs its expert shards and gathers their slots back, zeros in
+the slots of other ranks' experts; the sum of those tensors over ``model``
+is exact, each slot having one owner, and the weighting by router
+probability and the sum over k follow in the unsharded order.  No token
+moves between ranks (no all-to-all), and no expert weight is gathered over
+``model``.
+
 The expert products are batched products, as the JAX package computes
 them outside any Pallas kernel.  Two profiler spans, ``moe_ffn`` and
 ``moe_experts`` (inside it), let a profile split the FFN's device time
@@ -134,16 +145,17 @@ def moe_ffn(
     w_down [E, F, D] (+ optional shared_* dense weights).
 
     A DTensor ``x`` runs shard by shard over its batch rows (routing is per
-    row) with the weights gathered whole; the aux losses are formed from
-    the token means of every shard (``_aux``), so they equal the
-    unsharded ones.
+    row) and over the experts' shards (``_shard.run_split``), the router and
+    the shared expert gathered whole; the aux losses are formed from the
+    token means of every shard (``_aux``), so they equal the unsharded ones.
     """
     kw = dict(num_experts=num_experts, top_k=top_k,
               capacity_factor=capacity_factor, compute_dtype=compute_dtype,
               dispatch=dispatch)
     if is_dtensor(x):
-        out, stats = _shard.run_over_rows(
-            lambda xl, pl: _moe_core(xl, pl, **kw), x, params, extra="means")
+        out, stats = _shard.run_split(
+            lambda xl, pl, part: _moe_core(xl, pl, part=part, **kw), x, params,
+            EXPERT_WEIGHTS)
     else:
         out, stats = _moe_core(x, params, **kw)
     return out, _aux(stats, num_experts)
@@ -160,15 +172,23 @@ def _aux(stats: dict, E: int) -> dict:
     }
 
 
+EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")  # per layer: [E, ...]
+
+
 def _moe_core(x, params, *, num_experts, top_k, capacity_factor,
-              compute_dtype, dispatch):
-    """(out, token means) of ``moe_ffn`` on plain tensors."""
+              compute_dtype, dispatch, part=None):
+    """(out, token means) of ``moe_ffn`` on plain tensors.  With ``part``
+    (a ``_shard.Split``) the expert weights are the slice ``part.offset``
+    + ``part.size`` of the experts, and only their slots are computed here;
+    ``part.total`` sums the slots over the ranks that hold the others."""
     with record_function("moe_ffn"):
         B, S, D = x.shape
         E = num_experts
         capacity = max(int(capacity_factor * S * top_k / E), 1)
 
         router_logits = x.float() @ params["router"].float()  # [B, S, E]
+        if part is not None:
+            router_logits = part.once(router_logits)
         probs = torch.softmax(router_logits, dim=-1)
         top_p, top_e = top_k_lowest_index_first(probs, top_k)  # [B, S, k]
         # Normalise the selected probabilities (Mixtral/OLMoE convention).
@@ -182,12 +202,22 @@ def _moe_core(x, params, *, num_experts, top_k, capacity_factor,
         safe_pos = torch.where(keep, pos, capacity)
         rows = torch.arange(B, device=x.device)[:, None].expand(B, S * top_k)
 
+        # The slots computed here: every slot, or those of this rank's
+        # experts (the others write expert 0's overflow slot).
+        mine, slot_e, slot_pos, n_e = keep, flat_e, safe_pos, E
+        if part is not None:
+            local_e = flat_e - part.offset
+            here = (local_e >= 0) & (local_e < part.size)
+            mine, n_e = keep & here, part.size
+            slot_e = torch.where(here, local_e, 0)
+            slot_pos = torch.where(mine, pos, capacity)
+
         # Every dropped slot writes the overflow slot ``capacity``, in any
         # order; that slot is sliced off.
         slots = x.to(compute_dtype).repeat_interleave(top_k, dim=1)  # [B, S*k, D]
-        buf = torch.zeros((B, E, capacity + 1, D), dtype=compute_dtype,
+        buf = torch.zeros((B, n_e, capacity + 1, D), dtype=compute_dtype,
                           device=x.device)
-        buf = buf.index_put((rows, flat_e, safe_pos), slots)[:, :, :capacity]
+        buf = buf.index_put((rows, slot_e, slot_pos), slots)[:, :, :capacity]
 
         with record_function("moe_experts"):
             g = torch.einsum("becd,edf->becf", buf,
@@ -197,8 +227,10 @@ def _moe_core(x, params, *, num_experts, top_k, capacity_factor,
                                    params["w_down"].to(compute_dtype))
 
         # Gather back per row and combine over the k slots.
-        gathered = out_buf[rows, flat_e, torch.clamp(safe_pos, max=capacity - 1)]
-        gathered = torch.where(keep[..., None], gathered, 0.0)
+        gathered = out_buf[rows, slot_e, torch.clamp(slot_pos, max=capacity - 1)]
+        gathered = torch.where(mine[..., None], gathered, 0.0)
+        if part is not None:
+            gathered = part.total(gathered)  # each slot from its expert's rank
         weighted = gathered.float() * top_p.reshape(B, S * top_k, 1)
         out = weighted.reshape(B, S, top_k, D).sum(dim=2)
 
@@ -206,8 +238,10 @@ def _moe_core(x, params, *, num_experts, top_k, capacity_factor,
             xc = x.to(compute_dtype)
             sg = xc @ params["shared_w_gate"].to(compute_dtype)
             su = xc @ params["shared_w_up"].to(compute_dtype)
-            out = out + ((F.silu(sg) * su)
-                         @ params["shared_w_down"].to(compute_dtype)).float()
+            shared = (F.silu(sg) * su) @ params["shared_w_down"].to(compute_dtype)
+            if part is not None:
+                shared = part.once(shared)
+            out = out + shared.float()
 
         stats = {
             "dispatch_frac": F.one_hot(top_e[..., 0], E).float().mean(dim=(0, 1)),

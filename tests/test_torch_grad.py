@@ -442,7 +442,8 @@ def test_lm_loss_and_its_gradient_equal_jax(name):
 
 def test_remat_recomputes_each_block_in_the_backward(monkeypatch):
     """cfg.remat wraps every block in torch.utils.checkpoint under autograd
-    (recomputed in the backward), and the gradients do not change."""
+    (recomputed in the backward, under either remat_policy), and the
+    gradients do not change."""
     from repro_torch.models import lm as lm_mod
 
     cfg = dataclasses.replace(get_config("recurrentgemma-2b").smoke(),
@@ -457,21 +458,19 @@ def test_remat_recomputes_each_block_in_the_backward(monkeypatch):
     monkeypatch.setattr(lm_mod, "apply_block",
                         lambda *a, **k: calls.append(a[1]) or real(*a, **k))
     grads = {}
-    for remat in (True, False):
-        c = dataclasses.replace(cfg, remat=remat)
+    for remat, policy in ((True, "nothing"), (True, "dots"), (False, "nothing")):
+        c = dataclasses.replace(cfg, remat=remat, remat_policy=policy)
         leaves = tree_leaves(params)
         for leaf in leaves:
             leaf.requires_grad_(True)
         calls.clear()
         loss, _m = lm.lm_loss(c, params, batch)
         forward_calls = len(calls)
-        grads[remat] = torch.autograd.grad(loss, leaves)
+        grads[remat, policy] = torch.autograd.grad(loss, leaves)
         for leaf in leaves:
             leaf.requires_grad_(False)
         assert forward_calls == cfg.num_layers
         assert len(calls) == cfg.num_layers * (2 if remat else 1)
-    for a, b in zip(grads[True], grads[False]):
-        assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="dots"):
-        leaves[0].requires_grad_(True)
-        lm.lm_loss(dataclasses.replace(cfg, remat_policy="dots"), params, batch)
+    for key in ((True, "nothing"), (True, "dots")):
+        for a, b in zip(grads[key], grads[False, "nothing"]):
+            assert torch.equal(a, b)

@@ -6,7 +6,8 @@
   ``xlstm-350m``, ``seamless-m4t-large-v2`` (frames) and ``internvl2-2b``
   (its ViT prefix) smoke configs in float32.  ``loss``, ``ce_loss``,
   ``grad_norm`` and the MoE aux values must agree within 1e-4 at every
-  step (they agree to a few 1e-6: float32 sums in another order).
+  step (they agree to a few 1e-6: float32 sums in another order).  The
+  same for yi-9b under ``remat_policy="dots"`` in both packages.
 * The counterparts of ``tests/test_runtime.py``'s trainer and straggler
   cases, against the port's ``Trainer`` (the crash replay bit-identical).
 * The counterpart of ``tests/test_archs.py::test_train_step_runs_and_is_finite``
@@ -49,8 +50,15 @@ TINY = ShapeConfig("tiny", seq_len=32, global_batch=4, kind="train")
                                   "xlstm-350m", "seamless-m4t-large-v2",
                                   "internvl2-2b"])
 def test_trainer_matches_the_jax_trainer_from_one_checkpoint(name, tmp_path):
-    jcfg = dataclasses.replace(jax_get_config(name).smoke(), compute_dtype="float32")
-    cfg = dataclasses.replace(get_config(name).smoke(), compute_dtype="float32")
+    _trainer_parity(name, tmp_path)
+
+
+def _trainer_parity(name, tmp_path, **overrides):
+    """Both trainers take 3 steps from the JAX trainer's step-0 checkpoint
+    of ``name``'s smoke config in float32 (with ``overrides``)."""
+    over = dict(compute_dtype="float32", **overrides)
+    jcfg = dataclasses.replace(jax_get_config(name).smoke(), **over)
+    cfg = dataclasses.replace(get_config(name).smoke(), **over)
     jshape = JaxShapeConfig("tiny", seq_len=32, global_batch=4, kind="train")
     JaxTrainer(jcfg, jshape, JaxTrainerConfig(
         num_steps=0, checkpoint_dir=str(tmp_path / "start"))).run()
@@ -135,16 +143,15 @@ def test_straggler_monitor_detects():
     assert mon.record(0.1) is False
 
 
-def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
+def test_trainer_trains_under_dots_and_asks_for_the_cpu_without_a_card(
+        tmp_path, monkeypatch):
     """Sharding, a mesh and elastic re-meshing are ported (they run in
-    tests/test_torch_distributed.py); what stays cut is the JAX package's
-    ``remat_policy="dots"``, refused at the first step; and without a card
-    the trainer asks for ``device="cpu"``."""
-    cfg = dataclasses.replace(get_config("yi-9b").smoke(), remat_policy="dots")
-    tcfg = TrainerConfig(num_steps=1, checkpoint_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="remat_policy 'dots'"):
-        Trainer(cfg, TINY, tcfg, device="cpu").run()
+    tests/test_torch_distributed.py); the JAX package's
+    ``remat_policy="dots"`` trains as its trainer does, from one
+    checkpoint; and without a card the trainer asks for ``device="cpu"``."""
+    _trainer_parity("yi-9b", tmp_path, remat_policy="dots")
     cfg = get_config("yi-9b").smoke()
+    tcfg = TrainerConfig(num_steps=1, checkpoint_dir=str(tmp_path / "card"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         Trainer(cfg, TINY, tcfg)
