@@ -302,7 +302,8 @@ def _attention_part(cfg, p, x, positions, *, kind, tp=1, rules=None,
     size: keys carry RoPE for their true positions, so slot order does not
     matter and no window mask is needed.  ``return_state`` (prefill):
     returns this segment's fresh {"k","v"}.  Everything after ``ln1`` is
-    the profiler span ``attention``.
+    the profiler span ``attention``; decode's attention over the cache is
+    ``attention.decode`` inside it.
     """
     hp = head_plan(cfg, tp)
     H, KV, hd = hp["Hp"], hp["Kp"], cfg.head_dim
@@ -331,11 +332,12 @@ def _attention_part(cfg, p, x, positions, *, kind, tp=1, rules=None,
                 valid = min(cache_len + S, size)
             else:
                 valid = torch.clamp(cache_len + S, max=size)
-            if hp["mode"] == "expand_kv":
-                ck_att, cv_att = _expand_kv(cfg, hp, ck, cv, None)
-            else:
-                ck_att, cv_att = ck, cv
-            out = attn_mod.decode_attention(q, ck_att, cv_att, valid)
+            with record_function("attention.decode"):
+                if hp["mode"] == "expand_kv":
+                    ck_att, cv_att = _expand_kv(cfg, hp, ck, cv, None)
+                else:
+                    ck_att, cv_att = ck, cv
+                out = attn_mod.decode_attention(q, ck_att, cv_att, valid)
             state = cache if ck is cache["k"] and cv is cache["v"] \
                 else {"k": ck, "v": cv}
         else:
@@ -676,8 +678,9 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
     """One decode step.  tokens: [B, 1]; cache_len: int, or a [B] tensor of
     the tokens already in each row's cache.  Returns (logits [B, 1, Vp],
     cache), the cache updated in place (a sequence-sharded DTensor cache:
-    its new layers written back into the stacks)."""
-    with spmd(rules):
+    its new layers written back into the stacks).  The profiler span
+    ``model.decode``."""
+    with record_function("model.decode"), spmd(rules):
         x = _embed(cfg, params, tokens)
         x = _constrain(rules, x, ("batch", "seq_sp", "d_model"))
         if isinstance(cache_len, int):
@@ -703,11 +706,12 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int, *,
     Only the layers that cache ``max_seq`` positions (``attn``, ``global``
     and ``moe``) refuse a longer prompt: ``local`` layers keep the last
     ``window`` positions of a ring and recurrent layers a fixed-size state.
+    The profiler span ``model.prefill``.
     """
     B, S = tokens.shape
     if S > max_seq and {"attn", "global", "moe"} & set(cfg.layer_counts()):
         raise ValueError(f"prompt of {S} tokens exceeds max_seq {max_seq}")
-    with spmd(rules):
+    with record_function("model.prefill"), spmd(rules):
         return _prefill(cfg, params, tokens, max_seq, tp, rules)
 
 

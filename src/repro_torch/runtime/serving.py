@@ -30,6 +30,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.timing import TimingCollector
@@ -67,10 +68,16 @@ class Request:
 
 @dataclass
 class Completion:
+    """A finished request.  Its times run from its ``submit()``: to its
+    admission (``queued_s``), to its first token on the host (``ttft_s``)
+    and to its last (``latency_s``)."""
+
     rid: int
     tokens: list[int]
     prompt_len: int
     latency_s: float
+    queued_s: float
+    ttft_s: float
 
 
 class ServingEngine:
@@ -105,10 +112,13 @@ class ServingEngine:
             self.slot_rid = np.full(max_slots, -1, np.int64)
             self.slot_tokens: list[list[int]] = [[] for _ in range(max_slots)]
             self.slot_prompt_len = np.zeros(max_slots, np.int64)
-            self.slot_t0 = np.zeros(max_slots, np.float64)
+            self.slot_submitted = np.zeros(max_slots, np.float64)
+            self.slot_queued_s = np.zeros(max_slots, np.float64)
+            self.slot_ttft_s = np.zeros(max_slots, np.float64)
             self.last_token = np.zeros(max_slots, np.int64)
 
             self.queue: deque[Request] = deque()  # Emit -> onrl
+            self._submitted: deque[float] = deque()  # each queued request's submit()
             self.completions: list[Completion] = []  # Collect
             self._shutdown = False
 
@@ -118,78 +128,87 @@ class ServingEngine:
         if self._shutdown:
             raise RuntimeError("engine is shut down (UT already propagated)")
         self.queue.append(request)
+        self._submitted.append(time.perf_counter())
 
     # -- onrl: answer idle slots' requests with queued work ---------------------
 
     def _admit(self) -> None:
-        for slot in range(self.max_slots):
-            if self.slot_rid[slot] >= 0 or not self.queue:
-                continue  # busy slot never blocks the server
-            req = self.queue.popleft()
-            prompt = req.prompt[: self.max_seq - req.max_new_tokens - 1]
-            # Prefill this slot (batch=1) and splice its state into the
-            # engine cache at the slot index.  The prefill logits give the
-            # FIRST generated token; subsequent ticks feed it back.
-            t0 = time.perf_counter()
-            logits, pref_cache = lm_mod.prefill(
-                self.cfg, self.params,
-                torch.tensor([prompt], dtype=torch.int64, device=self.device),
-                self.max_seq, tp=self.tp, rules=self.rules,
-            )
-            for kind, leaves in pref_cache.items():
-                for name, one in leaves.items():
-                    _splice(self.cache[kind][name], slot, one)
-            first = int(torch.argmax(whole(logits)[0, 0, : self.cfg.vocab_size]))
-            self.slot_rid[slot] = req.rid
-            self.slot_tokens[slot] = list(prompt) + [first]
-            self.slot_prompt_len[slot] = len(prompt)
-            self.lens[slot] = len(prompt)
-            self.remaining[slot] = req.max_new_tokens - 1
-            self.last_token[slot] = first
-            self.slot_t0[slot] = t0
-            self.timing.count_item(f"slot{slot}")
-            if self.remaining[slot] <= 0 or (
-                self.eos_id is not None and first == self.eos_id
-            ):
-                self._complete(slot)
+        """Every admission's prompt upload, prefill, splice and first-token
+        read: the profiler span ``serve.admit``."""
+        with record_function("serve.admit"):
+            for slot in range(self.max_slots):
+                if self.slot_rid[slot] >= 0 or not self.queue:
+                    continue  # busy slot never blocks the server
+                req = self.queue.popleft()
+                submitted = self._submitted.popleft()
+                prompt = req.prompt[: self.max_seq - req.max_new_tokens - 1]
+                # Prefill this slot (batch=1) and splice its state into the
+                # engine cache at the slot index.  The prefill logits give the
+                # FIRST generated token; subsequent ticks feed it back.
+                admitted = time.perf_counter()
+                logits, pref_cache = lm_mod.prefill(
+                    self.cfg, self.params,
+                    torch.tensor([prompt], dtype=torch.int64, device=self.device),
+                    self.max_seq, tp=self.tp, rules=self.rules,
+                )
+                for kind, leaves in pref_cache.items():
+                    for name, one in leaves.items():
+                        _splice(self.cache[kind][name], slot, one)
+                first = int(torch.argmax(whole(logits)[0, 0, : self.cfg.vocab_size]))
+                self.slot_rid[slot] = req.rid
+                self.slot_tokens[slot] = list(prompt) + [first]
+                self.slot_prompt_len[slot] = len(prompt)
+                self.lens[slot] = len(prompt)
+                self.remaining[slot] = req.max_new_tokens - 1
+                self.last_token[slot] = first
+                self.slot_submitted[slot] = submitted
+                self.slot_queued_s[slot] = admitted - submitted
+                self.slot_ttft_s[slot] = time.perf_counter() - submitted
+                self.timing.count_item(f"slot{slot}")
+                if self.remaining[slot] <= 0 or (
+                    self.eos_id is not None and first == self.eos_id
+                ):
+                    self._complete(slot)
 
     # -- decode tick -------------------------------------------------------------
 
     def step(self) -> int:
-        """One engine tick.  Returns the number of active slots."""
-        self._admit()
-        active = self.slot_rid >= 0
-        if not active.any():
-            return 0
-        t0 = time.perf_counter()
-        # Note: idle slots decode garbage in lockstep (masked out below) —
-        # the price of batched decode; their cache writes land at their
-        # stale lens and are overwritten on admission (prefill).
-        tokens = torch.tensor(self.last_token[:, None], device=self.device)
-        lens = torch.tensor(self.lens, device=self.device)
-        logits, self.cache = lm_mod.decode_step(
-            self.cfg, self.params, self.cache, tokens, lens, tp=self.tp,
-            rules=self.rules)
-        next_tokens = torch.argmax(
-            whole(logits)[:, 0, : self.cfg.vocab_size], dim=-1).cpu().numpy()
-        self.timing.add("host", "run", (time.perf_counter() - t0) * 1e3)
+        """One engine tick: admissions, then one decode of every slot (the
+        profiler span ``serve.step``).  Returns the number of active slots."""
+        with record_function("serve.step"):
+            self._admit()
+            active = self.slot_rid >= 0
+            if not active.any():
+                return 0
+            t0 = time.perf_counter()
+            # Note: idle slots decode garbage in lockstep (masked out below) —
+            # the price of batched decode; their cache writes land at their
+            # stale lens and are overwritten on admission (prefill).
+            tokens = torch.tensor(self.last_token[:, None], device=self.device)
+            lens = torch.tensor(self.lens, device=self.device)
+            logits, self.cache = lm_mod.decode_step(
+                self.cfg, self.params, self.cache, tokens, lens, tp=self.tp,
+                rules=self.rules)
+            next_tokens = torch.argmax(
+                whole(logits)[:, 0, : self.cfg.vocab_size], dim=-1).cpu().numpy()
+            self.timing.add("host", "run", (time.perf_counter() - t0) * 1e3)
 
-        for slot in range(self.max_slots):
-            if not active[slot]:
-                continue
-            tok = int(next_tokens[slot])
-            self.slot_tokens[slot].append(tok)
-            self.lens[slot] += 1  # last_token is now in the cache
-            self.remaining[slot] -= 1
-            self.last_token[slot] = tok
-            done = (
-                self.remaining[slot] <= 0
-                or (self.eos_id is not None and tok == self.eos_id)
-                or self.lens[slot] >= self.max_seq - 1
-            )
-            if done:
-                self._complete(slot)
-        return int(active.sum())
+            for slot in range(self.max_slots):
+                if not active[slot]:
+                    continue
+                tok = int(next_tokens[slot])
+                self.slot_tokens[slot].append(tok)
+                self.lens[slot] += 1  # last_token is now in the cache
+                self.remaining[slot] -= 1
+                self.last_token[slot] = tok
+                done = (
+                    self.remaining[slot] <= 0
+                    or (self.eos_id is not None and tok == self.eos_id)
+                    or self.lens[slot] >= self.max_seq - 1
+                )
+                if done:
+                    self._complete(slot)
+            return int(active.sum())
 
     def _complete(self, slot: int) -> None:
         """afoc/afo -> Collect; the slot goes idle and (demand-driven)
@@ -199,7 +218,9 @@ class ServingEngine:
                 rid=int(self.slot_rid[slot]),
                 tokens=list(self.slot_tokens[slot]),
                 prompt_len=int(self.slot_prompt_len[slot]),
-                latency_s=time.perf_counter() - self.slot_t0[slot],
+                latency_s=time.perf_counter() - self.slot_submitted[slot],
+                queued_s=float(self.slot_queued_s[slot]),
+                ttft_s=float(self.slot_ttft_s[slot]),
             )
         )
         self.slot_rid[slot] = -1

@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.channels import ShardingRules, fake_struct
@@ -64,7 +65,9 @@ def make_train_step(
     (0-d tensors), and a MoE model's three aux values.  The parameters and moments are updated in place
     (``adamw.apply_updates``); the gradients live only inside the call.
     With ``rules``, the forward and the backward run under DTensor dispatch
-    and the metrics come back as 0-d DTensors."""
+    and the metrics come back as 0-d DTensors.  The profiler spans
+    ``train.forward``, ``train.backward`` (a recompute included) and
+    ``train.optimizer`` split the step."""
     loss_fn = loss_fn_for(cfg, tp, rules)
 
     def train_step(params, opt_state, batch, step):
@@ -73,8 +76,10 @@ def make_train_step(
             for leaf in leaves:
                 leaf.requires_grad_(True)
             try:
-                loss, metrics = loss_fn(params, batch)
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                with record_function("train.forward"):
+                    loss, metrics = loss_fn(params, batch)
+                with record_function("train.backward"):
+                    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             finally:
                 for leaf in leaves:
                     leaf.requires_grad_(False)
@@ -83,8 +88,9 @@ def make_train_step(
             grads = adamw.tree_map(lambda _p: next(flat), params)
             lr = warmup_cosine(step, peak_lr=peak_lr, warmup_steps=warmup_steps,
                                total_steps=total_steps)
-            params, opt_state, opt_metrics = adamw.apply_updates(
-                params, grads, opt_state, opt_cfg, lr)
+            with record_function("train.optimizer"):
+                params, opt_state, opt_metrics = adamw.apply_updates(
+                    params, grads, opt_state, opt_cfg, lr)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return params, opt_state, {**metrics, **opt_metrics}
 

@@ -10,6 +10,7 @@ unless asked for the CPU.
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +29,7 @@ from repro_torch.launch import serve as serve_cli
 from repro_torch.models import lm
 from repro_torch.models.common import init_params
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.runtime import serving
 from repro_torch.runtime.serving import Request, ServingEngine
 
 MAX_SEQ = 48
@@ -100,6 +102,49 @@ def test_run_until_drained_equals_the_jax_engine(name):
                [(c.rid, c.prompt_len, c.tokens) for c in jdone]
         assert not teng.queue and not (teng.slot_rid >= 0).any()
     assert sorted(c.rid for c in tdone) == list(range(8))
+
+
+@pytest.mark.parametrize("name", ["yi-9b", "recurrentgemma-2b"])
+def test_completions_time_the_queue_the_first_token_and_the_whole(name, monkeypatch):
+    """On a fake clock (a millisecond a read, a second between steps):
+    requests submitted while every slot is busy wait in the queue, every
+    completion has ``queued_s`` <= ``ttft_s`` <= ``latency_s``, all from
+    its submission, and the tokens still equal the JAX engine's."""
+    now = [0.0]
+
+    def perf_counter():
+        now[0] += 1e-3
+        return now[0]
+
+    monkeypatch.setattr(serving, "time", SimpleNamespace(perf_counter=perf_counter))
+    jcfg, cfg, jp, tp = _shared(name, seed=7)
+    reqs = _requests(cfg.vocab_size, n=7, seed=8)
+    reqs[:3] = [(rid, prompt, 6) for rid, prompt, _n in reqs[:3]]  # busy 5 ticks
+    jeng = JaxServingEngine(jcfg, jp, max_slots=3, max_seq=MAX_SEQ)
+    teng = ServingEngine(cfg, tp, max_slots=3, max_seq=MAX_SEQ)
+    for rid, prompt, n_new in reqs:
+        jeng.submit(JaxRequest(rid=rid, prompt=prompt, max_new_tokens=n_new))
+    for rid, prompt, n_new in reqs[:3]:
+        teng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n_new))
+    teng.step()
+    assert (teng.slot_rid >= 0).all()
+    for rid, prompt, n_new in reqs[3:]:  # every slot busy
+        teng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=n_new))
+    while teng.queue or (teng.slot_rid >= 0).any():
+        now[0] += 1.0
+        teng.step()
+    done = sorted(teng.completions, key=lambda c: c.rid)
+    assert [(c.rid, c.prompt_len, c.tokens) for c in done] == \
+           [(c.rid, c.prompt_len, c.tokens)
+            for c in sorted(jeng.shutdown(), key=lambda c: c.rid)]
+    assert all(c.queued_s < 0.5 for c in done[:3])  # admitted at once
+    assert all(c.queued_s > 0.5 for c in done[3:])  # waited a step or more
+    assert all(0 < c.queued_s < c.ttft_s < c.latency_s for c in done)
+    assert all(c.ttft_s - c.queued_s < 0.5 for c in done)  # in the same step
+    # the step that admits a request gives its first two tokens (the
+    # prefill's, then its tick's), each later step (a second) one more
+    assert all(round(c.latency_s - c.ttft_s) == len(c.tokens) - c.prompt_len - 2
+               for c in done)
 
 
 @pytest.mark.parametrize("name", ["yi-9b", "recurrentgemma-2b", "olmoe-1b-7b",
