@@ -49,10 +49,15 @@ source, all at once) and drives the port's paths on the card:
    smoke config in float32 under ``torch.use_deterministic_algorithms``,
    with a crash injected mid-run (the replayed losses bit-identical) and
    its losses against the port's own CPU run from the same checkpoint;
+   the AdamW kernel held bit for bit to the plain loop at olmoe-1b-7b's
+   leaf shapes and at sizes with a tail or off a 16-byte boundary, every
+   pair of parameter and state dtypes, one launch a leaf, then timed over
+   the benchmark's training tree (``adamw``: the kernel against its bound,
+   the plain loop and ``torch._fused_adamw_``);
    then ``make_train_step`` at recurrentgemma-2b's full width and depth
    (26 layers, bf16 compute, f32 parameters and AdamW state, B 1 x S 2048),
-   where each step's kernel launches are counted (no training phase may
-   call the explicit flash gradient on the card); then the same step under
+   where each step's kernel launches are counted (one AdamW launch a leaf;
+   no training phase may call the explicit flash gradient on the card); then the same step under
    ``remat_policy="dots"``: one forward and backward under each policy
    from the same parameters, bit for bit equal, and timed steps with their
    launches (the same as under ``"nothing"``), device time and peak memory.
@@ -99,7 +104,9 @@ a library call's (RMS norm and RG-LRU also split into their prefill and
 decode-tick launches, beside the time of as many launches at the least
 shape; the two backward kernels at the training path's shapes; RMS norm
 and flash also ``by_path``, their launches and device time on each path
-of part 5, and the flash backward's on each training path); the last
+of part 5, and the flash backward's on each training path; AdamW on the
+benchmark's training tree, with ``path_ms`` for the whole of
+``apply_updates``); the last
 line is the run's verdict.
 
 Without a CUDA device, or without the repository around it, it exits
@@ -109,6 +116,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
 import importlib.metadata
 import itertools
@@ -142,6 +150,8 @@ from repro_torch.cluster.deploy.local import LocalLauncher, _child_env  # noqa: 
 from repro_torch.cluster.service import ClusterService  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.adamw import kernel as adamw_kernel  # noqa: E402
+from repro_torch.kernels.adamw import ref as adamw_ref  # noqa: E402
 from repro_torch.core.builder import ClusterBuilder  # noqa: E402
 from repro_torch.core.verify import verify_spec  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
@@ -386,6 +396,21 @@ PHI3 = "phi3-medium-14b"
 TP_PLAN, TP_TOL = 16, 2e-4
 TP_PLAN_PROMPT, TP_PLAN_NEW, TP_PLAN_MAX_SEQ = 256, 8, 512
 DRYRUN_TIMEOUT_S = 600
+
+# AdamW (kernels/adamw), checked bit for bit against the plain loop over two
+# steps from the same values: at olmoe-1b-7b's leaf shapes (the stacked
+# layers cut to one), every pair of parameter and state dtypes; then at
+# sizes that leave a tail past the kernel's 8-element vectors, under each
+# clipping norm, each also as a view one element off its allocation (off a
+# 16-byte boundary: the scalar loop).  Timed on the whole tree of the
+# benchmark's training cell: olmoe-1b-7b at 8 layers, f32 parameters and
+# state, 3.56 B parameters.
+ADAMW_DTYPES = [(p, s) for p in (torch.float32, torch.bfloat16)
+                for s in ("float32", "bfloat16")]
+ADAMW_ODD_SIZES = (1, 7, 4099, (1 << 16) + 3)
+ADAMW_CLIPS = (1.0, 0.0, 1e3)
+ADAMW_PATH_LAYERS, ADAMW_REPS = 8, 3
+ADAMW_BYTES = 28  # a parameter's f32 p, g, m and v read, p, m and v written
 
 
 def emit(obj: dict) -> None:
@@ -857,7 +882,8 @@ def build_kernels() -> None:
             ("flash_attention", flash_kernel.load),
             ("flash_attention_backward", flash_kernel.load_backward),
             ("rglru", rglru_kernel.load),
-            ("rglru_backward", rglru_kernel.load_backward))}
+            ("rglru_backward", rglru_kernel.load_backward),
+            ("adamw", adamw_kernel.load))}
         ptxas = {f"{name}_ptxas": pool.submit(ptxas_report, source, flags)
                  for name, source, flags in (
                      ("mandelbrot", mandel_kernel.SOURCE, mandel_kernel.FLAGS),
@@ -865,7 +891,8 @@ def build_kernels() -> None:
                      ("rmsnorm_backward", rms_kernel.BACKWARD_SOURCE, ()),
                      ("flash_attention_backward", flash_kernel.BACKWARD_SOURCE, ()),
                      ("rglru", rglru_kernel.SOURCE, ()),
-                     ("rglru_backward", rglru_kernel.BACKWARD_SOURCE, ()))}
+                     ("rglru_backward", rglru_kernel.BACKWARD_SOURCE, ()),
+                     ("adamw", adamw_kernel.SOURCE, adamw_kernel.FLAGS))}
         seconds = {name: f.result() for name, f in builds.items()}
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "per_kernel_s": seconds,
@@ -1056,9 +1083,11 @@ def main() -> None:
                 "rglru_backward": check_rglru_backward(),
                 "flash_backward": max(check_flash_backward_kernel(), check_flash_backward())}
     train_trainer()
+    adamw_row = check_adamw()
     train = train_full()
     rows += train_kernel_rows(train, bwd_errs,
                               float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6)
+    rows.append(adamw_row)
 
     # The other block families, each path's launches counted from zero;
     # their RMS-norm and flash launches join those rows under "by_path".
@@ -2153,7 +2182,8 @@ def train_trainer() -> None:
     deterministic algorithms, with a crash after the step-3 checkpoint:
     the replayed steps' losses must be bit-identical, and every step's loss
     and grad norm within 1e-4 of the port's CPU run from the same step-0
-    checkpoint."""
+    checkpoint; on the card every step's update goes through the AdamW
+    kernel, one launch a leaf."""
     cfg = dataclasses.replace(get_config(RG).smoke(), compute_dtype="float32")
     shape = ShapeConfig("trainer_check", seq_len=TRAINER_SEQ,
                         global_batch=TRAINER_BATCH, kind="train")
@@ -2168,6 +2198,7 @@ def train_trainer() -> None:
             shutil.copytree(start, card_dir)
             shutil.copytree(start, cpu_dir)
             reset_launches()
+            adamw_before = adamw_kernel.LAUNCHES
             t0 = time.perf_counter()
             card = Trainer(cfg, shape, TrainerConfig(checkpoint_dir=card_dir, **kw),
                            failure_plan=FailurePlan(
@@ -2176,6 +2207,7 @@ def train_trainer() -> None:
             out = card.run()
             card_s = time.perf_counter() - t0
             launches = current_launches()
+            adamw_launches = adamw_kernel.LAUNCHES - adamw_before
         finally:
             torch.use_deterministic_algorithms(False)
         t0 = time.perf_counter()
@@ -2197,6 +2229,8 @@ def train_trainer() -> None:
           and all(launches[k] > 0 for k in ("rmsnorm", "rmsnorm_backward", "flash",
                                              "flash_backward", "rglru", "rglru_backward"))
           and launches["explicit_flash_gradient_on_cuda"] == 0
+          and adamw_launches > 0 and adamw_launches % len(adamw.tree_leaves(
+              lm.lm_param_specs(cfg))) == 0
           and flash_kernel.BACKWARD_LAUNCHES_BY_VARIANT["wgmma"] == 0
           and all(math.isfinite(m["loss"]) for m in card.metrics_history))
     emit({"phase": "train_trainer", "arch": cfg.name, "compute_dtype": cfg.compute_dtype,
@@ -2209,9 +2243,141 @@ def train_trainer() -> None:
           "card_losses": [[m["step"], m["loss"]] for m in card.metrics_history],
           "max_delta_vs_cpu": deltas, "tol": TRAINER_TOL,
           "card_wall_s": card_s, "cpu_wall_s": cpu_s,
-          "launches": launches, "ok": ok})
+          "launches": launches, "adamw_launches": adamw_launches, "ok": ok})
     if not ok:
         raise SystemExit("trainer on the card: replay or CPU parity failed")
+
+
+@contextlib.contextmanager
+def plain_adamw():
+    """``adamw.apply_updates`` with every leaf through the plain loop, on
+    the card too."""
+    saved = adamw.adamw_update
+    adamw.adamw_update = adamw_ref.adamw_update_reference
+    try:
+        yield
+    finally:
+        adamw.adamw_update = saved
+
+
+def adamw_leaf(shape, dtype, gen, scale: float | None, offset: int) -> torch.Tensor:
+    """A leaf of normal values times ``scale`` (zeros for None), ``offset``
+    elements into its allocation."""
+    n = math.prod(shape)
+    if scale is None:
+        buf = torch.zeros(n + offset, dtype=dtype, device="cuda")
+    else:
+        buf = torch.randn(n + offset, generator=gen, device="cuda").mul_(scale).to(dtype)
+    return buf[offset:].view(shape)
+
+
+def adamw_case(shape, param_dtype, state_dtype: str, clip: float, offset: int,
+               gen) -> bool:
+    """Two AdamW steps of one leaf through ``apply_updates`` (one kernel
+    launch each) and through the plain loop, from the same values: are p, m
+    and v bit-equal after them?"""
+    cfg = adamw.AdamWConfig(clip_norm=clip, state_dtype=state_dtype)
+    sdt = getattr(torch, state_dtype)
+    params = {"w": adamw_leaf(shape, param_dtype, gen, 1.0, offset)}
+    state = {"m": {"w": adamw_leaf(shape, sdt, gen, None, offset)},
+             "v": {"w": adamw_leaf(shape, sdt, gen, None, offset)},
+             "count": torch.zeros((), dtype=torch.int32, device="cuda")}
+    plain = adamw.tree_map(torch.clone, params)
+    plain_state = {k: adamw.tree_map(torch.clone, v) for k, v in state.items()}
+    lr = torch.tensor(3e-4, device="cuda")
+    for step in range(2):
+        grads = {"w": adamw_leaf(shape, param_dtype, gen, 10.0 ** (step - 1), offset)}
+        before = adamw_kernel.LAUNCHES
+        adamw.apply_updates(params, grads, state, cfg, lr)
+        if adamw_kernel.LAUNCHES != before + 1:
+            raise SystemExit(f"adamw {shape}: {adamw_kernel.LAUNCHES - before} launches "
+                             f"for one leaf")
+        with plain_adamw():
+            adamw.apply_updates(plain, grads, plain_state, cfg, lr)
+    return all(torch.equal(bits(a), bits(b)) for a, b in (
+        (params["w"], plain["w"]), (state["m"]["w"], plain_state["m"]["w"]),
+        (state["v"]["w"], plain_state["v"]["w"])))
+
+
+def check_adamw() -> dict:
+    """The AdamW kernel bit for bit against the plain loop (ADAMW_* cases),
+    then timed on the benchmark's training tree: the whole of
+    ``apply_updates`` (the clipping norm and one launch a leaf), the
+    kernel's launches alone against the bound of their bytes, the plain
+    loop's ``apply_updates``, and ``torch._fused_adamw_`` on the same leaves
+    (the yardstick only: decoupled weight decay, no clipping, other
+    arithmetic on the same bytes).  Returns the ``kernels`` row."""
+    gen = torch.Generator("cuda")
+    gen.manual_seed(0)
+    shapes = sorted({s.shape for s in adamw.tree_leaves(lm.lm_param_specs(cut(OLMOE, 1)))})
+    cases = [(shape, pdt, sdt, 1.0, 0) for pdt, sdt in ADAMW_DTYPES for shape in shapes]
+    cases += [((n,), pdt, sdt, clip, offset) for pdt, sdt in ADAMW_DTYPES
+              for n in ADAMW_ODD_SIZES for clip in ADAMW_CLIPS for offset in (0, 1)]
+    t0 = time.perf_counter()
+    unequal = [str(c[:5]) for c in cases if not adamw_case(*c, gen)]
+    check_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    cfg = adamw.AdamWConfig()
+    params = init_params(lm.lm_param_specs(cut(OLMOE, ADAMW_PATH_LAYERS)), 0, "cuda",
+                         torch.float32)
+    grads = adamw.tree_map(lambda p: torch.randn(p.shape, generator=gen, device="cuda"),
+                           params)
+    state = adamw.init_state(params, cfg)
+    lr = torch.tensor(3e-4, device="cuda")
+    leaves = [adamw.tree_leaves(t) for t in (params, grads, state["m"], state["v"])]
+    n, n_leaves = sum(p.numel() for p in leaves[0]), len(leaves[0])
+    bound_ms = ADAMW_BYTES * n / HBM_BYTES_PER_S * 1e3
+
+    def path():
+        adamw.apply_updates(params, grads, state, cfg, lr)
+
+    scale = torch.ones((), device="cuda")
+    b1c, b2c = (torch.tensor(1 - b ** 3, dtype=torch.float32, device="cuda")
+                for b in (cfg.b1, cfg.b2))
+
+    def update():
+        for p, g, m, v in zip(*leaves):
+            adamw.adamw_update(p, g, m, v, scale, b1c, b2c, lr, cfg.b1, cfg.b2, cfg.eps,
+                               cfg.weight_decay)
+
+    steps_t = [torch.ones((), device="cuda") for _ in leaves[0]]
+
+    def library():
+        torch._fused_adamw_(*leaves, [], steps_t, lr=3e-4, beta1=cfg.b1, beta2=cfg.b2,
+                            weight_decay=cfg.weight_decay, eps=cfg.eps, amsgrad=False,
+                            maximize=False)
+
+    path()
+    update()
+    before = adamw_kernel.LAUNCHES
+    path_ms = event_ms(path, ADAMW_REPS)
+    launches = (adamw_kernel.LAUNCHES - before) / ADAMW_REPS
+    update_ms = event_ms(update, ADAMW_REPS)
+    with plain_adamw():
+        path()
+        plain_ms = event_ms(path, ADAMW_REPS)
+    library()
+    library_ms = event_ms(library, ADAMW_REPS)
+    ms = statistics.median(update_ms)
+    emit({"phase": "adamw", "cases": len(cases), "unequal": unequal, "check_s": check_s,
+          "path": f"{OLMOE} at {ADAMW_PATH_LAYERS} layers, f32 parameters and state",
+          "leaves": n_leaves, "params": n, "launches_per_step": launches,
+          "path_ms": path_ms, "update_ms": update_ms, "bound_ms": bound_ms,
+          "share_of_bound": bound_ms / ms, "update_gb_per_s": ADAMW_BYTES * n / ms / 1e6,
+          "plain_ms": plain_ms, "library_ms": library_ms,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del params, grads, state, leaves
+    torch.cuda.empty_cache()
+    if unequal or launches != n_leaves:
+        raise SystemExit(f"adamw: cases not bit-equal to the plain loop {unequal[:5]}, "
+                         f"or {launches} launches a step")
+    return {"name": "adamw", "route": "cuda",
+            "source": "src/repro_torch/kernels/adamw/csrc/adamw.cu",
+            "replaces": None, "launches": launches, "max_abs_err": 0.0, "ms": ms,
+            "path_ms": statistics.median(path_ms),
+            "plain_ms": statistics.median(plain_ms), "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": statistics.median(library_ms)}
 
 
 def expected_train_launches(cfg) -> dict[str, int]:
@@ -2266,7 +2432,7 @@ def train_full() -> dict:
     rows = []
     for step in range(1, TRAIN_STEPS + 1):
         batch = pipe.get(step)
-        before = current_launches()
+        before, adamw_before = current_launches(), adamw_kernel.LAUNCHES
         torch.cuda.synchronize()
         t = time.perf_counter()
         params, opt_state, m = step_fn(params, opt_state, batch, step)
@@ -2277,7 +2443,8 @@ def train_full() -> dict:
         rows.append({"step": step, "loss": loss, "grad_norm": float(m["grad_norm"]),
                      "lr": float(m["lr"]), "ms": ms,
                      "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
-                     "launches": {k: after[k] - before[k] for k in after}})
+                     "launches": {k: after[k] - before[k] for k in after},
+                     "adamw_launches": adamw_kernel.LAUNCHES - adamw_before})
     launches = current_launches()
     flash_variants = dict(flash_kernel.LAUNCHES_BY_VARIANT)
     backward_variants = dict(flash_kernel.BACKWARD_LAUNCHES_BY_VARIANT)
@@ -2318,10 +2485,12 @@ def train_full() -> dict:
         raise SystemExit(f"full-width training: a loss is not finite: {losses}")
     if abs(first_loss - math.log(cfg.vocab_size)) > 2.0:
         raise SystemExit(f"full-width training: first loss {first_loss} is far from ln V")
+    leaves = len(adamw.tree_leaves(params))
     for r in rows:
-        if r["launches"] != expected:
+        if r["launches"] != expected or r["adamw_launches"] != leaves:
             raise SystemExit(f"train step {r['step']}: launches {r['launches']} != "
-                             f"expected {expected}")
+                             f"expected {expected}, or {r['adamw_launches']} AdamW "
+                             f"launches for {leaves} leaves")
     if (flash_variants != {"wgmma": expected["flash"] * TRAIN_STEPS, "f32": 0}
             or backward_variants != {"wgmma": expected["flash_backward"] * TRAIN_STEPS,
                                      "f32": 0}):

@@ -7,6 +7,8 @@ parameters and moments into the tensors it is given (PyTorch's idiom: a
 3.3 B-parameter model's state would not fit twice on one card) and returns
 the same trees.  A caller that needs the old values copies them first; the
 checkpoint manager's ``save_async`` copies to the host before it returns.
+Each leaf's update is ``kernels.adamw.ops.adamw_update``: one kernel
+launch on the card, bit for bit the plain loop the CPU runs.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+
+from repro_torch.kernels.adamw.ops import adamw_update
 
 
 @dataclass(frozen=True)
@@ -80,30 +84,12 @@ def apply_updates(
     b2c = 1.0 - torch.pow(cfg.b2, countf)
     lr = lr.to(gnorm.device)
 
+    # One launch a leaf on the card (``kernels/adamw``), the plain loop on
+    # the CPU; a DTensor leaf is updated on its local shards.
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"])):
-        # The reference's arithmetic, one rounding at a time; f32 moments
-        # are updated where they lie, so a leaf needs at most three
-        # temporaries of its size.
-        g = g.float() * scale
-        m1 = m.mul_(cfg.b1) if m.dtype == torch.float32 else m.float() * cfg.b1
-        m1.add_(g * (1 - cfg.b1))
-        v1 = v.mul_(cfg.b2) if v.dtype == torch.float32 else v.float() * cfg.b2
-        sq = g * (1 - cfg.b2)
-        v1.add_(sq.mul_(g))
-        del g, sq
-        upd = torch.div(v1, b2c).sqrt_().add_(cfg.eps)
-        upd = torch.div(m1, b1c).div_(upd)
-        upd.add_(cfg.weight_decay * p.float()).mul_(lr)
-        if m1 is not m:
-            m.copy_(m1)
-        if v1 is not v:
-            v.copy_(v1)
-        del m1, v1
-        if p.dtype == torch.float32:
-            p.sub_(upd)
-        else:
-            p.copy_(p.float() - upd)
+        adamw_update(p, g, m, v, scale, b1c, b2c, lr, cfg.b1, cfg.b2, cfg.eps,
+                     cfg.weight_decay)
     state["count"] = count
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, state, metrics
