@@ -97,6 +97,19 @@ source, all at once) and drives the port's paths on the card:
    yi-9b on the 16 x 16 fake mesh, run on the host with no device memory
    left behind.
 
+7. DeepSeek-V2-Lite's latent attention, also alone (``python3
+   chip_smoke.py mla``): the RMS-norm kernel at the latent's width 512
+   (a tick's rows and a prompt's, bit-equal across launches of 1, 4 and
+   1,000 rows); the prefill's flash call as the model makes it (MHA 16 /
+   16, q and k 192 and v 128 zero-padded to 256, causal, the published
+   scale 192^-0.5 m^2) at S 1,024, 3,072 and 7,168 against the plain
+   version at the true widths (bf16, the model's dtype, at the usual
+   tolerances; f32 held to float64, no further from it than the plain
+   version by more than the tolerance); then ``ServingEngine`` serving
+   the model at full width and depth (27 layers, bf16, prompts of
+   1,024-7,168 tokens) with its RMS-norm and flash launches counted from
+   zero.
+
 Each phase prints one JSON line; any failure exits non-zero.  The line
 before the last lists every kernel with its launches on its path, its
 device time at that path's shapes, its bound, its plain version's time and
@@ -181,6 +194,7 @@ from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
     rms_norm_backward_reference,
     rms_norm_reference,
 )
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -295,6 +309,25 @@ FLASH_EDGE = [(1, 4, 2, 50, 50, 128, True, 0), (1, 10, 1, 50, 50, 256, True, 204
               (2, 16, 8, 640, 640, 64, True, 0), (2, 16, 8, 640, 640, 32, True, 128),
               (2, 16, 8, 640, 640, 16, True, 0)]
 FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
+# DeepSeek-V2-Lite's latent attention (MLA), as its serving path calls the
+# kernels: each prefill's flash call is MHA 16 / 16, causal, no window, its
+# q and k (192 wide) and v (128) zero-padded to 256, at the published scale
+# 192^-0.5 m^2 (YaRN's m), at prompt lengths across the benchmark cell's
+# 1,024-7,168 (b, h, kv, s, dqk, dv); the latent's RMS norm is 512 wide, at
+# a tick's rows (4 here, 64 in the cell) and a 7,168-token prompt's.  The
+# bf16 cases, the model's, are held to the plain version at FLASH_TOL and
+# RMS_TOL.  In f32 the two versions differ by a few ulp more than those
+# tolerances allow at these shapes (the flash scale is 1.8x 256^-0.5, the
+# latent rows' norms vary more), as the plain version differs from the
+# same formula in float64; so an f32 case is held to float64: the kernel's
+# error may pass the plain version's by the tolerance, no more.  Then the
+# model served at full width and depth (bf16, 4 slots x 8,192 positions)
+# with its launches counted.
+DSV2 = "deepseek-v2-lite"
+MLA_FLASH = [(1, 16, 16, s, 192, 128) for s in (1024, 3072, 7168)]
+MLA_RMS_D = 512
+MLA_RMS_SHAPES = [(4, MLA_RMS_D), (64, MLA_RMS_D), (7168, MLA_RMS_D)]
+MLA_SERVE_PROMPT, MLA_SERVE_MAX_SEQ = (1024, 7169), 8192
 # RG-LRU checks (b, s, w): the reference sweep of tests/test_kernels.py, with
 # h0; then the model's shapes, a prefill and a decode tick.
 RGLRU_SWEEP = [(2, 64, 128), (1, 128, 200), (3, 32, 64)]
@@ -899,7 +932,9 @@ def build_kernels() -> None:
               **{key: f.result() for key, f in ptxas.items()}})
 
 
-def main() -> None:
+def start() -> tuple[str, str, float]:
+    """The card's name, its nvidia-smi line and its max SM clock in Hz;
+    TF32 off and every kernel built."""
     kind = torch.cuda.get_device_name(0)
     card = nvidia_smi("name,power.limit")
     max_clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
@@ -913,6 +948,24 @@ def main() -> None:
           # work function ships by plain pickle and payloads by pickle
           **{name: installed_version(name) for name in ("cloudpickle", "msgpack")}})
     build_kernels()
+    return kind, card, max_clock_hz
+
+
+def verdict(kind: str) -> None:
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+def main_mla() -> None:
+    """``python3 chip_smoke.py mla``: part 7 alone."""
+    kind, card, _clock = start()
+    mla_phases()
+    print(card, flush=True)
+    verdict(kind)
+
+
+def main() -> None:
+    kind, card, max_clock_hz = start()
     watch_explicit_flash_gradient()
 
     chunk = mandel_kernel.chunk()
@@ -1093,6 +1146,7 @@ def main() -> None:
     # their RMS-norm and flash launches join those rows under "by_path".
     new_paths = by_path(other_families())
     spmd_phases(train)
+    mla_phases()
     for row in rows:
         key = {"rmsnorm": "rmsnorm", "flash_attention_forward": "flash",
                "flash_attention_backward": "flash_backward"}.get(row["name"])
@@ -1100,8 +1154,7 @@ def main() -> None:
             row["by_path"] = new_paths[key]
     print(card, flush=True)
     emit({"kernels": [mandel_row, *rows]})
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    verdict(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -1157,16 +1210,16 @@ def check_rmsnorm() -> float:
             if not ok:
                 raise SystemExit(f"rmsnorm kernel differs at {n}x{d} {xdt}/{sdt}")
             worst = max(worst, err)
-    check_rmsnorm_row_invariance(gen)
+    check_rmsnorm_row_invariance(gen, RMS_SERVED_D)
     count_rsqrt_rounding(gen)
     return worst
 
 
-def check_rmsnorm_row_invariance(gen) -> None:
+def check_rmsnorm_row_invariance(gen, served_d) -> None:
     """The same rows give the same bits in launches of 1, 4 and 1,000 rows,
-    at both served widths: a batch-4 tick must normalise a request's row as
+    at every served width: a batch-4 tick must normalise a request's row as
     its batch-1 prefill and offline decode do."""
-    for d in RMS_SERVED_D:
+    for d in served_d:
         for xdt, sdt in RMS_DTYPES:
             x = torch.randn((max(RMS_INVARIANCE_ROWS), d), generator=gen,
                             device="cuda").to(xdt)
@@ -1249,6 +1302,112 @@ def check_flash() -> float:
     if ran != {"wgmma": len(cases), "f32": len(cases)}:
         raise SystemExit(f"flash checks ran {ran}, expected {len(cases)} of each variant")
     return worst
+
+
+def mla_verdict(phase: str, got, want, exact, dtype, tol: dict, **fields) -> float:
+    """Emit one MLA case and exit on a fault: a bf16 case within ``tol``
+    of the plain version ``want``; an f32 case no further from ``exact``
+    (float64) than the plain version is, plus ``tol``.  Returns the error
+    against the plain version."""
+    err = float((got.float() - want.float()).abs().max())
+    kernel_f64 = float((got.double() - exact).abs().max())
+    plain_f64 = float((want.double() - exact).abs().max())
+    held = err if dtype == torch.bfloat16 else kernel_f64 - plain_f64
+    ok = (got.dtype == dtype and bool(torch.isfinite(got).all())
+          and held <= tol[dtype])
+    emit({"phase": phase, **fields, "dtype": str(dtype), "max_abs_err": err,
+          "kernel_vs_f64": kernel_f64, "plain_vs_f64": plain_f64,
+          "held_to": "plain" if dtype == torch.bfloat16 else "f64",
+          "tol": tol[dtype], "ok": ok})
+    if not ok:
+        raise SystemExit(f"{phase} differs at {fields} {dtype}")
+    return err
+
+
+def check_mla_rmsnorm() -> float:
+    """RMS norm at the latent's width, every dtype pair the checks use;
+    then bit-equal rows across launches of 1, 4 and 1,000 rows."""
+    gen = torch.Generator("cuda").manual_seed(4)
+    worst = 0.0
+    for xdt, sdt in RMS_DTYPES:
+        for n, d in MLA_RMS_SHAPES:
+            x = torch.randn((n, d), generator=gen, device="cuda").to(xdt)
+            scale = (0.2 * torch.randn((d,), generator=gen, device="cuda")).to(sdt)
+            got = rms_kernel.rms_norm_cuda(x, scale)
+            want = rms_norm_reference(x, scale)
+            xd = x.double()
+            exact = (xd * torch.rsqrt((xd * xd).mean(-1, keepdim=True) + 1e-6)
+                     * (1 + scale.double()))
+            torch.cuda.synchronize()
+            worst = max(worst, mla_verdict("mla_rmsnorm_vs_plain", got, want, exact, xdt,
+                                           RMS_TOL, shape=[n, d], scale_dtype=str(sdt)))
+    check_rmsnorm_row_invariance(gen, (MLA_RMS_D,))
+    return worst
+
+
+def exact_attention(q, k, v, scale: float) -> torch.Tensor:
+    """Causal attention in float64, q, k [B, S, H, Dqk], v [B, S, H, Dv]."""
+    qd, kd, vd = (t.double().transpose(1, 2) for t in (q, k, v))
+    scores = torch.einsum("bhqd,bhkd->bhqk", qd, kd) * scale
+    s = q.shape[1]
+    scores.masked_fill_(torch.ones(s, s, dtype=torch.bool, device=q.device).triu(1),
+                        float("-inf"))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, -1), vd).transpose(1, 2)
+
+
+def check_mla_flash() -> float:
+    """The latent attention's prefill call on the card, as the model makes
+    it (``padded_attention``: q, k and v zero-padded to 256 in the model's
+    layout, the published scale passed to the kernel), against the plain
+    version at the true widths (q, k 192 and v 128, the same scale); the
+    output is cut back to v's width by the call, so the padded columns
+    must not leak into it.  float32 through the f32 variant and bfloat16
+    through wgmma, one launch a call."""
+    cfg = get_config(DSV2)
+    scale = attn_mod.yarn_softmax_scale(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                                        cfg.rope_scaling)
+    gen = torch.Generator("cuda").manual_seed(3)
+    worst = 0.0
+    before = dict(flash_kernel.LAUNCHES_BY_VARIANT)
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, kv, s, dqk, dv in MLA_FLASH:
+            q, k = (torch.randn((b, s, n, dqk), generator=gen, device="cuda").to(dtype)
+                    for n in (h, kv))
+            v = torch.randn((b, s, kv, dv), generator=gen, device="cuda").to(dtype)
+            got = attn_mod.padded_attention(q, k, v, scale=scale)
+            want = attention_reference(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), causal=True,
+                                       scale=scale).transpose(1, 2)
+            exact = exact_attention(q, k, v, scale)
+            torch.cuda.synchronize()
+            if got.shape != want.shape:
+                raise SystemExit(f"MLA flash call gave {tuple(got.shape)}, "
+                                 f"not {tuple(want.shape)}")
+            worst = max(worst, mla_verdict(
+                "mla_flash_vs_plain", got, want, exact, dtype, FLASH_TOL,
+                shape=[b, h, kv, s, s], qk_dim=dqk, v_dim=dv, padded_to=256,
+                scale=scale, causal=True, window=0))
+            del exact
+    ran = {x: n - before[x] for x, n in flash_kernel.LAUNCHES_BY_VARIANT.items()}
+    if ran != {"wgmma": len(MLA_FLASH), "f32": len(MLA_FLASH)}:
+        raise SystemExit(f"MLA flash checks ran {ran}, expected {len(MLA_FLASH)} of each")
+    return worst
+
+
+def mla_phases() -> dict:
+    """DeepSeek-V2-Lite's kernels at its shapes (the latent's RMS norm,
+    with row invariance; the padded flash call at its scale), then the
+    model served at full width and depth with its launches counted from
+    zero: per prefill and tick 3 norms a layer and the final norm, per
+    prefill 27 flash launches, all wgmma."""
+    errs = {"rmsnorm": check_mla_rmsnorm(), "flash": check_mla_flash()}
+    serve = serve_full(DSV2, "serve_mla", MLA_SERVE_MAX_SEQ,
+                       lambda rng, vocab: make_requests(
+                           rng, SERVE_REQUESTS, MLA_SERVE_PROMPT, SERVE_NEW, vocab),
+                       profile=False)
+    emit({"phase": "mla", "max_abs_err": errs, "launches": serve["launches"],
+          "ticks": serve["ticks"], "prompt_lens": serve["prompt_lens"]})
+    return errs
 
 
 def model_gates(b: int, s: int, w: int, gen, seed: int = 0):
@@ -1458,11 +1617,13 @@ def reset_launches() -> None:
 
 def block_norms(cfg, kind: str) -> int:
     """RMS-norm launches of one block of ``kind``: ln1; ln2 where the block
-    has an FFN (a ``moe`` block always, an attention or ``rec`` block where
-    d_ff > 0, an xLSTM block never); q and k norms in attention blocks of a
-    config with qk-norm."""
-    n = 1 + (kind == "moe" or (kind not in ("mlstm", "slstm") and cfg.d_ff > 0))
-    return n + 2 * (kind in lm.ATTN_KINDS and cfg.use_qk_norm)
+    has an FFN (a ``moe`` or ``mla_moe`` block always, an attention, latent
+    attention or ``rec`` block where d_ff > 0, an xLSTM block never); q and
+    k norms in attention blocks of a config with qk-norm; the latent's norm
+    in a latent-attention block."""
+    n = 1 + (kind in lm.MOE_KINDS or (kind not in ("mlstm", "slstm") and cfg.d_ff > 0))
+    return (n + 2 * (kind in lm.ATTN_KINDS and cfg.use_qk_norm)
+            + (kind in lm.MLA_KINDS))
 
 
 def pass_norms(cfg) -> int:
@@ -1472,12 +1633,15 @@ def pass_norms(cfg) -> int:
 
 
 def attention_layers(cfg) -> int:
-    return sum(n for kind, n in cfg.layer_counts().items() if kind in lm.ATTN_KINDS)
+    """Layers whose prefill makes one flash launch: attention and latent
+    attention."""
+    return sum(n for kind, n in cfg.layer_counts().items()
+               if kind in lm.ATTN_KINDS + lm.MLA_KINDS)
 
 
 def expected_launches(cfg, prefills: int, ticks: int) -> dict[str, int]:
     """Per prefill pass and per tick: ``pass_norms``; one flash launch per
-    attention-kind layer (``moe`` included) per prefill; one RG-LRU launch
+    attention-kind layer (``moe`` and the latent kinds included) per prefill; one RG-LRU launch
     per rec layer per prefill and per tick.  xLSTM layers launch no kernel
     but their norm."""
     rec = cfg.layer_counts().get("rec", 0)
@@ -3685,4 +3849,4 @@ def spmd_phases(train: dict) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main_mla() if sys.argv[1:] == ["mla"] else main()

@@ -8,7 +8,7 @@ the exact same code paths as the full dry-run configs.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, fields, replace
 
 import torch
 
@@ -43,6 +43,13 @@ LONG_500K = ShapeConfig("long_500k", 524288, 1, "long")
 ALL_SHAPES: tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 
 
+def _port_field(default):
+    """A field the JAX package's ``ModelConfig`` lacks: left out of the repr
+    (and so of a checkpoint's ``config_hash``, shared by both packages)
+    while it holds its default, which is the JAX package's behaviour."""
+    return field(default=default, metadata={"port_only": True})
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
@@ -61,8 +68,11 @@ class ModelConfig:
     #   "moe"    attention + mixture-of-experts FFN
     #   "rec"    RG-LRU recurrent block (Griffin)
     #   "mlstm"/"slstm"  xLSTM blocks
+    #   "mla"/"mla_moe"  latent attention (MLA) + SwiGLU MLP / MoE FFN
     layer_pattern: tuple[str, ...] = ("attn",)
     window_size: int = 0
+    # Leading layers before the cycled pattern (DeepSeek's dense first layer).
+    layer_prefix: tuple[str, ...] = _port_field(())
 
     # MoE
     num_experts: int = 0
@@ -71,8 +81,18 @@ class ModelConfig:
     num_shared_experts: int = 0
     capacity_factor: float = 1.25
     # "onehot": GShard-literal [T*k, E] cumsum dispatch (baseline);
-    # "sort": O(T*k) stable-argsort dispatch, identical assignment (perf).
-    moe_dispatch: str = "onehot" 
+    # "sort": O(T*k) stable-argsort dispatch, identical assignment (perf);
+    # "dropless": every slot computed, no capacity (grouped expert products).
+    moe_dispatch: str = "onehot"
+    norm_topk_prob: bool = _port_field(True)  # renormalise the k picked probabilities
+
+    # Multi-head latent attention (DeepSeek-V2): a kv_lora_rank-wide latent
+    # and one qk_rope_head_dim-wide RoPE key shared by every head are cached;
+    # per-head keys (nope | rope) and values are expanded from the latent.
+    kv_lora_rank: int = _port_field(0)
+    qk_nope_head_dim: int = _port_field(0)
+    qk_rope_head_dim: int = _port_field(0)
+    v_head_dim: int = _port_field(0)
 
     # Recurrent (Griffin RG-LRU)
     rnn_width: int = 0
@@ -88,6 +108,11 @@ class ModelConfig:
 
     # Misc architectural knobs
     rope_theta: float = 10000.0
+    # The published ``rope_scaling`` of a YaRN model ({"type": "yarn",
+    # "factor", "original_max_position_embeddings", "beta_fast", "beta_slow",
+    # "mscale", "mscale_all_dim"}); None: plain RoPE.
+    rope_scaling: dict | None = _port_field(None)
+    scale_embeddings: bool = _port_field(True)  # the embedding times sqrt(d_model)
     use_qk_norm: bool = False
     logit_softcap: float = 0.0
     tie_embeddings: bool = False
@@ -114,6 +139,11 @@ class ModelConfig:
     # Which shapes are supported (long_500k only for sub-quadratic archs).
     supports_long_context: bool = False
     has_decoder: bool = True
+
+    def __repr__(self) -> str:
+        shown = (f for f in fields(self) if not (
+            f.metadata.get("port_only") and getattr(self, f.name) == f.default))
+        return f"ModelConfig({', '.join(f'{f.name}={getattr(self, f.name)!r}' for f in shown)})"
 
     def __post_init__(self):
         if self.num_heads % self.num_kv_heads != 0 and self.num_kv_heads > 0:
@@ -144,9 +174,10 @@ class ModelConfig:
 
     @property
     def pattern_for_layers(self) -> tuple[str, ...]:
-        """The full per-layer kind list (period cycled, prefix remainder)."""
-        p = self.layer_pattern
-        return tuple(p[i % len(p)] for i in range(self.num_layers))
+        """The full per-layer kind list: ``layer_prefix``, then the period
+        cycled over the remaining layers (its remainder a prefix of it)."""
+        p, lead = self.layer_pattern, self.layer_prefix
+        return lead + tuple(p[i % len(p)] for i in range(self.num_layers - len(lead)))
 
     def layer_counts(self) -> dict[str, int]:
         counts: dict[str, int] = {}
@@ -183,10 +214,14 @@ class ModelConfig:
     def smoke(self) -> "ModelConfig":
         period = len(self.layer_pattern)
         n_layers = max(2, min(period + 1, 4)) if period > 1 else 2
+        mla = {}
+        if self.kv_lora_rank:
+            mla = dict(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+                       v_head_dim=16)
         return replace(
             self,
             name=f"{self.name}-smoke",
-            num_layers=n_layers,
+            num_layers=len(self.layer_prefix) + n_layers,
             d_model=64,
             num_heads=4,
             num_kv_heads=min(self.num_kv_heads, 2) or 2,
@@ -205,6 +240,7 @@ class ModelConfig:
             # droppless MoE at smoke scale: decode batches are tiny, and the
             # exactness tests compare decode vs full forward.
             capacity_factor=float(max(self.num_experts, 4)),
+            **mla,
         )
 
 

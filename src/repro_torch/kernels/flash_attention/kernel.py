@@ -175,7 +175,8 @@ def _scale(D: int) -> float:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0,
-                         lse: torch.Tensor | None = None) -> torch.Tensor:
+                         lse: torch.Tensor | None = None,
+                         scale: float | None = None) -> torch.Tensor:
     """q: [B, H, Sq, D]; k, v: [B, KV, Skv, D] with KV dividing H.
 
     Any strides for the first three dimensions; the last must be
@@ -185,7 +186,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``empty_like``).  Where ``lse`` is given (a contiguous float32 [B, H,
     Sq] CUDA tensor), the kernel also writes each query row's log-sum-exp
     of its scaled, masked scores into it (natural log; +inf for a row that
-    sees no key), which the backward reads.
+    sees no key), which the backward reads.  ``scale`` multiplies the scores
+    (``_scale(D)`` without one).
     """
     global LAUNCHES
     variant = _check_inputs(q, k, v)
@@ -208,8 +210,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             B, H, KV, Sq, Skv, D, *tma_strides(q), *tma_strides(k),
-            *tma_strides(v), *tma_strides(out), int(causal), window, _scale(D),
-            stream)
+            *tma_strides(v), *tma_strides(out), int(causal), window,
+            _scale(D) if scale is None else scale, stream)
     if err != 0:
         raise RuntimeError(
             f"flash attention ({variant}) launch failed: "
@@ -234,7 +236,7 @@ def backward_split(keys_per_block: int, B: int, KV: int, G: int, Skv: int) -> in
 def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   out: torch.Tensor, d_out: torch.Tensor,
                                   lse: torch.Tensor, *, causal: bool = True,
-                                  window: int = 0):
+                                  window: int = 0, scale: float | None = None):
     """The gradient of ``flash_attention_cuda``: (dq, dk, dv) in the layouts
     of q, k and v (``empty_like``).
 
@@ -242,6 +244,7 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     contiguous float32 [B, H, Sq] log-sum-exp.  One dtype and device for the
     six tensors but lse, the last dimension contiguous; bfloat16 (the wgmma
     variant) also needs q, k, v and d_out readable by the TMA unit.
+    ``scale`` is the forward's.
     """
     global BACKWARD_LAUNCHES
     variant = _check_inputs(q, k, v, out=out, d_out=d_out)
@@ -271,7 +274,8 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
             None if part is None else part.data_ptr(),
             B, H, KV, Sq, Skv, D,
             *(st for t in (q, k, v, out, d_out, dq, dk, dv) for st in tma_strides(t)),
-            int(causal), window, _scale(D), split, keys, stream)
+            int(causal), window, _scale(D) if scale is None else scale, split,
+            keys, stream)
     if err != 0:
         raise RuntimeError(
             f"flash attention backward ({variant}) launch failed: "

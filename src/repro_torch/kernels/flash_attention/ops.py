@@ -42,15 +42,15 @@ from repro_torch.kernels.flash_attention.ref import (
 
 
 def _forward_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool, window: int) -> torch.Tensor:
+                  causal: bool, window: int, scale: float | None = None) -> torch.Tensor:
     if all(t.device.type == "cpu" for t in (q, k, v)):
         H, KV = q.shape[1], k.shape[1]
         if H % KV:
             raise ValueError(f"H={H} not a multiple of KV={KV}")
         k = k.repeat_interleave(H // KV, dim=1)
         v = v.repeat_interleave(H // KV, dim=1)
-        return attention_reference(q, k, v, causal=causal, window=window)
-    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return attention_reference(q, k, v, causal=causal, window=window, scale=scale)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
 
 
 # Run on CPU and CUDA tensors; a fake or meta tensor takes the fake impl.
@@ -59,7 +59,7 @@ _forward = torch.library.custom_op("repro_torch::flash_attention",
 
 
 @_forward.register_fake
-def _forward_fake(q, k, v, causal, window):
+def _forward_fake(q, k, v, causal, window, scale=None):
     return torch.empty_like(q)
 
 
@@ -76,14 +76,16 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
 
 
 def _forward_lse_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-                      window: int) -> tuple[torch.Tensor, torch.Tensor]:
+                      window: int, scale: float | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """(out, lse): the forward and each query row's log-sum-exp, f32
     [B, H, Sq]."""
     if _on_cpu(q, k, v):
-        return (_forward_impl(q, k, v, causal, window),
-                attention_lse_reference(q, k, causal=causal, window=window))
+        return (_forward_impl(q, k, v, causal, window, scale),
+                attention_lse_reference(q, k, causal=causal, window=window, scale=scale))
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    return flash_attention_cuda(q, k, v, causal=causal, window=window, lse=lse), lse
+    return flash_attention_cuda(q, k, v, causal=causal, window=window, lse=lse,
+                                scale=scale), lse
 
 
 _forward_lse = torch.library.custom_op("repro_torch::flash_attention_lse",
@@ -91,7 +93,7 @@ _forward_lse = torch.library.custom_op("repro_torch::flash_attention_lse",
 
 
 @_forward_lse.register_fake
-def _forward_lse_fake(q, k, v, causal, window):
+def _forward_lse_fake(q, k, v, causal, window, scale=None):
     return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
 
 
@@ -101,13 +103,14 @@ register_flop_formula([torch.ops.repro_torch.flash_attention,
 
 def _backward_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                    d_out: torch.Tensor, lse: torch.Tensor, causal: bool,
-                   window: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   window: int, scale: float | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in the dtypes of q, k and v."""
     if _on_cpu(q, k, v, out, d_out, lse):
         return flash_backward_reference(q, k, v, out, d_out, lse, causal=causal,
-                                        window=window)
+                                        window=window, scale=scale)
     return flash_attention_backward_cuda(q, k, v, out, d_out, lse, causal=causal,
-                                         window=window)
+                                         window=window, scale=scale)
 
 
 _backward = torch.library.custom_op("repro_torch::flash_attention_backward",
@@ -115,7 +118,7 @@ _backward = torch.library.custom_op("repro_torch::flash_attention_backward",
 
 
 @_backward.register_fake
-def _backward_fake(q, k, v, out, d_out, lse, causal, window):
+def _backward_fake(q, k, v, out, d_out, lse, causal, window, scale=None):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
@@ -146,22 +149,25 @@ def _tma_ready(t: torch.Tensor) -> torch.Tensor:
 
 class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out, lse = _forward_lse(q, k, v, causal, window)
+    def forward(ctx, q, k, v, causal, window, scale=None):
+        out, lse = _forward_lse(q, k, v, causal, window, scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return out
 
     @staticmethod
     def backward(ctx, d_out):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _backward(q, k, v, out, _tma_ready(d_out), lse, ctx.causal, ctx.window)
-        return dq, dk, dv, None, None
+        dq, dk, dv = _backward(q, k, v, out, _tma_ready(d_out), lse, ctx.causal,
+                               ctx.window, ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    scale: float | None = None) -> torch.Tensor:
     """q: [B, H, Sq, D]; k, v: [B, KV, Skv, D] (KV divides H: GQA).
+    ``scale`` multiplies the scores (1 / sqrt(D) without one).
 
     DTensors run shard by shard over batch and heads: q keeps those shards
     (its sequence and head_dim gathered), and k and v take q's placements,
@@ -170,8 +176,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _shard.is_dtensor(q, k, v):
         placements = _shard.keep_shards(q, (0, 1))
         out = flash_attention(*(_shard.local(t, placements) for t in (q, k, v)),
-                              causal=causal, window=window)
+                              causal=causal, window=window, scale=scale)
         return _shard.wrap(out, q, placements, q.shape)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttentionFunction.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window)
+        return FlashAttentionFunction.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, scale)

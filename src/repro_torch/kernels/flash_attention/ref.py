@@ -30,11 +30,18 @@ def visible(sq: int, skv: int, causal: bool, window: int, device) -> torch.Tenso
     return mask
 
 
+def _scaled(scores: torch.Tensor, D: int, scale: float | None) -> torch.Tensor:
+    """Scores times ``scale``, or over sqrt(D) without one."""
+    return scores / math.sqrt(D) if scale is None else scores * scale
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: [B, H, Sq, D]; k, v: [B, H, Skv, D] (heads already matched)."""
+                        causal: bool = True, window: int = 0,
+                        scale: float | None = None) -> torch.Tensor:
+    """q: [B, H, Sq, D]; k, v: [B, H, Skv, D] (heads already matched);
+    ``scale`` multiplies the scores (1 / sqrt(D) without one)."""
     D = q.shape[-1]
-    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(D)
+    scores = _scaled(torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()), D, scale)
     mask = visible(q.shape[2], k.shape[2], causal, window, q.device)
     scores = torch.where(mask[None, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
@@ -49,14 +56,16 @@ def _grouped(t: torch.Tensor, kv: int) -> torch.Tensor:
     return t.float().reshape(B, kv, H // kv, S, D)
 
 
-def _scaled_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """[B, KV, G, Sq, Skv] f32 scores q.k / sqrt(D), query heads grouped."""
-    return torch.einsum("bkgqd,bksd->bkgqs", _grouped(q, k.shape[1]),
-                        k.float()) / math.sqrt(q.shape[-1])
+def _scaled_scores(q: torch.Tensor, k: torch.Tensor,
+                   scale: float | None = None) -> torch.Tensor:
+    """[B, KV, G, Sq, Skv] f32 scores q.k / sqrt(D) (or times ``scale``),
+    query heads grouped."""
+    return _scaled(torch.einsum("bkgqd,bksd->bkgqs", _grouped(q, k.shape[1]),
+                                k.float()), q.shape[-1], scale)
 
 
 def attention_lse_reference(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
-                            window: int = 0) -> torch.Tensor:
+                            window: int = 0, scale: float | None = None) -> torch.Tensor:
     """Each query row's log-sum-exp of its scaled, masked scores, f32
     [B, H, Sq] (natural log; +inf for a row that sees no key, so that
     exp(s - lse) = 0 there, as the forward writes 0 for such a row).
@@ -64,7 +73,7 @@ def attention_lse_reference(q: torch.Tensor, k: torch.Tensor, *, causal: bool = 
     q: [B, H, Sq, D]; k: [B, KV, Skv, D] with KV dividing H."""
     B, H, Sq, _D = q.shape
     mask = visible(Sq, k.shape[2], causal, window, q.device)
-    scores = torch.where(mask, _scaled_scores(q, k), -math.inf)
+    scores = torch.where(mask, _scaled_scores(q, k, scale), -math.inf)
     lse = torch.logsumexp(scores, dim=-1)
     lse = torch.where(mask.any(dim=-1), lse, math.inf)
     return lse.reshape(B, H, Sq)
@@ -72,24 +81,25 @@ def attention_lse_reference(q: torch.Tensor, k: torch.Tensor, *, causal: bool = 
 
 def flash_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              out: torch.Tensor, d_out: torch.Tensor, lse: torch.Tensor, *,
-                             causal: bool = True, window: int = 0):
+                             causal: bool = True, window: int = 0,
+                             scale: float | None = None):
     """The gradient as the backward kernel computes it, in f32 inside.
 
     q, out, d_out: [B, H, Sq, D]; k, v: [B, KV, Skv, D] with KV dividing H;
     lse: [B, H, Sq] from the forward.  P = exp(q.k / sqrt(D) - lse) under
     the mask, Delta = rowsum(dO * O); then dV = P^T dO, dS = P * (dO V^T -
     Delta), dQ = dS K / sqrt(D) and dK = dS^T Q / sqrt(D), dK and dV summed
-    over the query heads of a KV head.  Returns (dq, dk, dv) in the inputs'
-    dtypes.
+    over the query heads of a KV head (``scale`` in place of 1 / sqrt(D)
+    where given).  Returns (dq, dk, dv) in the inputs' dtypes.
     """
     B, H, Sq, D = q.shape
     KV, Skv = k.shape[1], k.shape[2]
-    inv = 1.0 / math.sqrt(D)
+    inv = 1.0 / math.sqrt(D) if scale is None else scale
     qf, of, dof = (_grouped(t, KV) for t in (q, out, d_out))
     kf, vf = k.float(), v.float()
     lse_g = lse.float().reshape(B, KV, H // KV, Sq, 1)
     mask = visible(Sq, Skv, causal, window, q.device)
-    probs = torch.where(mask, torch.exp(_scaled_scores(q, k) - lse_g), 0.0)
+    probs = torch.where(mask, torch.exp(_scaled_scores(q, k, scale) - lse_g), 0.0)
     dv = torch.einsum("bkgqs,bkgqd->bksd", probs, dof)
     dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
     ds = probs * (dp - (dof * of).sum(dim=-1, keepdim=True))

@@ -5,7 +5,10 @@ The layer pattern of the config decides which blocks exist and in which
 order: the attention kinds ``attn`` (full causal), ``local`` (sliding
 window, ring-buffer cache), ``global`` and ``moe`` (attention with a
 mixture-of-experts FFN, ``models/moe.py``), each but ``moe`` with a SwiGLU
-MLP where ``d_ff > 0``; the Griffin recurrent kind ``rec``
+MLP where ``d_ff > 0``; the latent-attention kinds ``mla`` (with the MLP)
+and ``mla_moe`` (with the MoE FFN), DeepSeek-V2's MLA (``_mla_part``),
+which cache each position's normed latent and RoPE key and no per-head
+K/V; the Griffin recurrent kind ``rec``
 (``models/recurrent.py``) with its MLP; and the xLSTM kinds ``mlstm`` and
 ``slstm`` (``models/xlstm.py``), one RMS norm and no MLP.
 
@@ -73,6 +76,8 @@ from repro_torch.models.layers import (
 )
 
 ATTN_KINDS = ("attn", "local", "global", "moe")
+MLA_KINDS = ("mla", "mla_moe")
+MOE_KINDS = ("moe", "mla_moe")
 STATE_KINDS = ("rec", "mlstm", "slstm")
 MOE_AUX = ("moe_lb_loss", "moe_z_loss", "moe_drop_fraction")
 
@@ -134,6 +139,27 @@ def _attn_specs(cfg: ModelConfig, n: int, tp: int) -> dict:
     return specs
 
 
+def _mla_specs(cfg: ModelConfig, n: int) -> dict:
+    """Latent attention without a query latent (``q_lora_rank`` null):
+    ``wq`` [D, H (nope + rope)], ``wkv_a`` [D, latent + rope] (the latent
+    and the one RoPE key), ``kv_norm`` the latent's RMS norm, ``wkv_b``
+    [latent, H (nope + v)] (each head's no-RoPE key and value), ``wo``."""
+    D, H, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "ln1": ParamSpec((n, D), ("layers", "d_model"), init="zeros"),
+        "wq": ParamSpec((n, D, H * (dn + dr)), ("layers", "d_model_fsdp", "d_attn"),
+                        stddev=fan_in_normal((D, 0))),
+        "wkv_a": ParamSpec((n, D, r + dr), ("layers", "d_model_fsdp", None),
+                           stddev=fan_in_normal((D, 0))),
+        "kv_norm": ParamSpec((n, r), ("layers", None), init="zeros"),
+        "wkv_b": ParamSpec((n, r, H * (dn + dv)), ("layers", None, "d_attn"),
+                           stddev=fan_in_normal((r, 0))),
+        "wo": ParamSpec((n, H * dv, D), ("layers", "d_attn", "d_model_fsdp"),
+                        stddev=fan_in_normal((H * dv, 0), fan_axis=0)),
+    }
+
+
 def _block_specs(cfg: ModelConfig, kind: str, n: int, tp: int) -> dict:
     D = cfg.d_model
     if kind in ("mlstm", "slstm"):
@@ -149,13 +175,15 @@ def _block_specs(cfg: ModelConfig, kind: str, n: int, tp: int) -> dict:
         }
     elif kind in ATTN_KINDS:
         specs = _attn_specs(cfg, n, tp)
+    elif kind in MLA_KINDS:
+        specs = _mla_specs(cfg, n)
     else:
         raise ValueError(f"unknown layer kind {kind!r}")
-    if kind == "moe":
+    if kind in MOE_KINDS:
         specs["ln2"] = ParamSpec((n, D), ("layers", "d_model"), init="zeros")
         specs["moe"] = moe_mod.moe_param_specs(
             n, D, cfg.moe_d_ff, cfg.num_experts, cfg.num_shared_experts,
-            cfg.moe_d_ff)
+            cfg.num_shared_experts * cfg.moe_d_ff)
     elif cfg.d_ff > 0:
         specs["ln2"] = ParamSpec((n, D), ("layers", "d_model"), init="zeros")
         specs["mlp"] = mlp_specs(D, cfg.d_ff, n)
@@ -358,6 +386,67 @@ def _attention_part(cfg, p, x, positions, *, kind, tp=1, rules=None,
     return out.to(x.dtype), state
 
 
+def _mla_part(cfg, p, x, positions, *, cache=None, cache_len=None,
+              return_state=False):
+    """Latent attention (DeepSeek-V2's MLA).  Returns (attn_out, state).
+
+    h = RMSNorm(x); q = h Wq per head [nope | rope]; [c~ | k~] = h Wkv_a;
+    the latent c = RMSNorm(c~) with its own scale and the RoPE key k_pe =
+    RoPE(k~), one for every head; YaRN's RoPE rotates consecutive pairs.
+    A prompt (``cache`` None) runs un-absorbed: [k_nope | v] = c Wkv_b per
+    head (the span ``mla.expand``), keys [k_nope | k_pe], and the flash
+    kernel at the scale ``yarn_softmax_scale``, q, k and v zero-padded to
+    one head dim.  ``return_state``: its {"c", "k_pe"}.  Decode writes c
+    and k_pe into the cache (``_write_kv``) and runs absorbed: each head's
+    no-RoPE query times its key up-projection scores the latents directly,
+    and the softmax-weighted latents times the value up-projection give
+    its output (those two products are the span ``mla.absorb``), all of it
+    the span ``attention.decode`` in f32.  Everything after ``ln1`` is the
+    span ``attention``.
+    """
+    H, r = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    B, S, _D = x.shape
+    cdt = _dtype(cfg.compute_dtype)
+    scale = attn_mod.yarn_softmax_scale(dn + dr, cfg.rope_scaling)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    with record_function("attention"):
+        q = (h @ p["wq"].to(cdt)).reshape(B, S, H, dn + dr)
+        kv = h @ p["wkv_a"].to(cdt)
+        c = rms_norm(kv[..., :r], p["kv_norm"], cfg.norm_eps)
+        turn = attn_mod.rope_pairs_turns(dr, cfg.rope_theta, cfg.rope_scaling, positions)
+        q_pe = attn_mod.apply_rope_pairs(q[..., dn:], turn)
+        k_pe = attn_mod.apply_rope_pairs(kv[..., None, r:], turn)[:, :, 0]
+        state = None
+        if cache is None:
+            with record_function("mla.expand"):
+                kvb = (c @ p["wkv_b"].to(cdt)).reshape(B, S, H, dn + dv)
+            k = torch.cat([kvb[..., :dn], k_pe[:, :, None].expand(B, S, H, dr)], -1)
+            out = attn_mod.padded_attention(torch.cat([q[..., :dn], q_pe], -1), k,
+                                            kvb[..., dn:], scale=scale)
+            if return_state:
+                state = {"c": c, "k_pe": k_pe}
+        else:
+            cc = _write_kv(cache["c"], c, cache_len, cache_len)
+            cpe = _write_kv(cache["k_pe"], k_pe, cache_len, cache_len)
+            size = cc.shape[1]
+            valid = (min(cache_len + S, size) if isinstance(cache_len, int)
+                     else torch.clamp(cache_len + S, max=size))
+            with record_function("attention.decode"):
+                with record_function("mla.absorb"):
+                    w = p["wkv_b"].float().reshape(r, H, dn + dv)
+                    q_lat = torch.einsum("bshn,rhn->bshr", q[..., :dn].float(),
+                                         w[..., :dn])
+                lat = attn_mod.latent_decode_attention(q_lat, q_pe, cc, cpe, valid,
+                                                       scale)
+                with record_function("mla.absorb"):
+                    out = torch.einsum("bshr,rhv->bshv", lat, w[..., dn:]).to(cdt)
+            state = cache if cc is cache["c"] and cpe is cache["k_pe"] \
+                else {"c": cc, "k_pe": cpe}
+        out = out.reshape(B, S, H * dv) @ p["wo"].to(cdt)
+    return out.to(x.dtype), state
+
+
 def _cache_kind_state(cache_slice, kind):
     """A recurrent layer's cache leaves as its block takes them."""
     if cache_slice is None or kind == "rec":
@@ -424,18 +513,27 @@ def apply_block(cfg, kind, p, x, positions, *, tp=1, rules=None, cache=None,
             cfg, p, x, positions, kind=kind, tp=tp, rules=rules, cache=cache,
             cache_len=cache_len, return_state=return_state,
         )
+    elif kind in MLA_KINDS:
+        if tp > 1 or rules is not None:
+            raise NotImplementedError("latent attention runs on one device")
+        mix_out, state = _mla_part(cfg, p, x, positions, cache=cache,
+                                   cache_len=cache_len, return_state=return_state)
     elif kind in STATE_KINDS:
         mix_out, state = _state_part(cfg, kind, p, x, rules=rules, cache=cache)
     else:
         raise ValueError(f"unknown layer kind {kind!r}")
     x = x + mix_out
     aux: dict[str, torch.Tensor] = {}
-    if kind == "moe":
+    if kind in MOE_KINDS:
         h = _seq_whole(rules, rms_norm(x, p["ln2"], cfg.norm_eps))
         moe_out, aux = moe_mod.moe_ffn(
             h, p["moe"], num_experts=cfg.num_experts,
             top_k=cfg.experts_per_token, capacity_factor=cfg.capacity_factor,
-            compute_dtype=cdt, dispatch=cfg.moe_dispatch)
+            compute_dtype=cdt, dispatch=cfg.moe_dispatch,
+            norm_topk_prob=cfg.norm_topk_prob,
+            # the aux losses only where they are summed: a whole-sequence
+            # forward, not a prefill or a decode step
+            aux=cache is None and not return_state)
         x = x + _residual(rules, moe_out)
     elif "mlp" in p:
         h = _seq_whole(rules, rms_norm(x, p["ln2"], cfg.norm_eps))
@@ -454,7 +552,7 @@ def _layer(tree, i: int):
 
 def _embed(cfg: ModelConfig, params, tokens):
     x = embed_tokens(params["embed"], tokens, _dtype(cfg.compute_dtype))
-    return x * math.sqrt(cfg.d_model)
+    return x * math.sqrt(cfg.d_model) if cfg.scale_embeddings else x
 
 
 def _unstack(tree, n: int) -> list:
@@ -552,7 +650,7 @@ def _forward_hidden(cfg, params, tokens, extra_embeds, tp, rules):
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     remat = _remat(cfg, params)
     aux_total = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
-                  for k in MOE_AUX} if "moe" in cfg.layer_counts() else {})
+                  for k in MOE_AUX} if set(MOE_KINDS) & set(cfg.layer_counts()) else {})
     for kind, p, _i in _layers(cfg, params):
         def block(x, p, kind=kind):
             x, _state, aux = apply_block(cfg, kind, p, x, positions, tp=tp,
@@ -627,6 +725,13 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int, tp: int = 1,
             shp = (n, batch, seq, hp["Kp"], cfg.head_dim)
             spec[kind] = {"k": (shp, dtype, kv_axes, 0.0),
                           "v": (shp, dtype, kv_axes, 0.0)}
+        elif kind in MLA_KINDS:
+            # the latent and the RoPE key of every position, no per-head K/V
+            axes = ("layers", "batch", "kv_seq", None)
+            spec[kind] = {
+                "c": ((n, batch, max_seq, cfg.kv_lora_rank), dtype, axes, 0.0),
+                "k_pe": ((n, batch, max_seq, cfg.qk_rope_head_dim), dtype, axes, 0.0),
+            }
         elif kind == "rec":
             # The carried state h is float32 whatever the compute dtype.
             spec[kind] = {
@@ -703,13 +808,13 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int, *,
             tp: int = 1, rules=None):
     """Run the full prompt, returning (last-token logits, filled cache).
 
-    Only the layers that cache ``max_seq`` positions (``attn``, ``global``
-    and ``moe``) refuse a longer prompt: ``local`` layers keep the last
+    Only the layers that cache ``max_seq`` positions (``attn``, ``global``,
+    ``moe`` and the latent kinds) refuse a longer prompt: ``local`` layers keep the last
     ``window`` positions of a ring and recurrent layers a fixed-size state.
     The profiler span ``model.prefill``.
     """
     B, S = tokens.shape
-    if S > max_seq and {"attn", "global", "moe"} & set(cfg.layer_counts()):
+    if S > max_seq and {"attn", "global", "moe", *MLA_KINDS} & set(cfg.layer_counts()):
         raise ValueError(f"prompt of {S} tokens exceeds max_seq {max_seq}")
     with record_function("model.prefill"), spmd(rules):
         return _prefill(cfg, params, tokens, max_seq, tp, rules)
@@ -729,8 +834,8 @@ def _prefill(cfg, params, tokens, max_seq, tp, rules):
             for name, leaf in st.items():
                 cache[kind][name][i].copy_(leaf)
             continue
-        for name in ("k", "v"):
-            dst = cache[kind][name][i]  # [B, size, KV, hd]
+        for name in st:
+            dst = cache[kind][name][i]  # [B, size, ...]
             size = dst.shape[1]
             if kind == "local":
                 nfit = min(S, size)

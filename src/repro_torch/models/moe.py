@@ -37,6 +37,15 @@ them outside any Pallas kernel.  Two profiler spans, ``moe_ffn`` and
 ``moe_experts`` (inside it), let a profile split the FFN's device time
 into routing and dispatch against the expert products.
 
+Dropless dispatch (``dispatch="dropless"``, DeepSeek's): no capacity and
+no dropped slot.  The token-major slots are sorted by expert (a stable
+argsort), the tokens gathered in that order, the experts' SwiGLU run as
+grouped products over each expert's run of rows (``torch._grouped_mm`` on
+CUDA tensors, a loop over the experts on CPU tensors), and the outputs
+scattered back to slot order.  The sort, gather and scatter are the span
+``moe_dispatch``.  Expert parallelism and the dropless dispatch are not
+combined.
+
 Aux losses: Switch load-balance loss + router z-loss, returned to the caller
 (weighted into the training objective), and the fraction of dropped slots.
 """
@@ -133,9 +142,14 @@ def moe_ffn(
     top_k: int,
     capacity_factor: float = 1.25,
     compute_dtype=torch.bfloat16,
-    dispatch: str = "onehot",  # "onehot" (GShard baseline) | "sort" (O(S*k))
+    dispatch: str = "onehot",  # "onehot" (GShard) | "sort" (O(S*k)) | "dropless"
+    norm_topk_prob: bool = True,
+    aux: bool = True,
 ) -> tuple[torch.Tensor, dict]:
     """x: [B, S, D] -> (out [B, S, D], aux metrics/losses).
+
+    ``aux=False`` (a caller that discards them: prefill and decode) skips
+    the aux statistics and returns no aux values; the output is the same.
 
     **Grouped dispatch**: routing positions, the [E, C, D] scatter and the
     gather-back are computed per batch row, so a row's tokens never compete
@@ -151,13 +165,17 @@ def moe_ffn(
     """
     kw = dict(num_experts=num_experts, top_k=top_k,
               capacity_factor=capacity_factor, compute_dtype=compute_dtype,
-              dispatch=dispatch)
+              dispatch=dispatch, norm_topk_prob=norm_topk_prob)
     if is_dtensor(x):
+        if dispatch == "dropless":
+            raise NotImplementedError("the dropless dispatch runs on one device")
         out, stats = _shard.run_split(
             lambda xl, pl, part: _moe_core(xl, pl, part=part, **kw), x, params,
             EXPERT_WEIGHTS)
     else:
-        out, stats = _moe_core(x, params, **kw)
+        out, stats = _moe_core(x, params, stats=aux, **kw)
+        if not aux:
+            return out, {}
     return out, _aux(stats, num_experts)
 
 
@@ -176,8 +194,9 @@ EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")  # per layer: [E, ...]
 
 
 def _moe_core(x, params, *, num_experts, top_k, capacity_factor,
-              compute_dtype, dispatch, part=None):
-    """(out, token means) of ``moe_ffn`` on plain tensors.  With ``part``
+              compute_dtype, dispatch, norm_topk_prob=True, part=None, stats=True):
+    """(out, token means, or None without ``stats``) of ``moe_ffn`` on plain
+    tensors.  With ``part``
     (a ``_shard.Split``) the expert weights are the slice ``part.offset``
     + ``part.size`` of the experts, and only their slots are computed here;
     ``part.total`` sums the slots over the ranks that hold the others."""
@@ -191,8 +210,14 @@ def _moe_core(x, params, *, num_experts, top_k, capacity_factor,
             router_logits = part.once(router_logits)
         probs = torch.softmax(router_logits, dim=-1)
         top_p, top_e = top_k_lowest_index_first(probs, top_k)  # [B, S, k]
-        # Normalise the selected probabilities (Mixtral/OLMoE convention).
-        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+        if norm_topk_prob:
+            # Normalise the selected probabilities (Mixtral/OLMoE convention).
+            top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+        if dispatch == "dropless":
+            out = _with_shared(_dropless(x, params, top_e, top_p, compute_dtype), x,
+                               params, compute_dtype, part)
+            return out, (_stats(top_e, probs, router_logits,
+                                torch.ones((), device=x.device), E) if stats else None)
 
         flat_e = top_e.reshape(B, S * top_k)
         pos_fn = (position_in_expert_sort if dispatch == "sort"
@@ -233,20 +258,67 @@ def _moe_core(x, params, *, num_experts, top_k, capacity_factor,
             gathered = part.total(gathered)  # each slot from its expert's rank
         weighted = gathered.float() * top_p.reshape(B, S * top_k, 1)
         out = weighted.reshape(B, S, top_k, D).sum(dim=2)
+        out = _with_shared(out, x, params, compute_dtype, part)
+        return out, (_stats(top_e, probs, router_logits, torch.mean(keep.float()), E)
+                     if stats else None)
 
-        if "shared_w_gate" in params:
-            xc = x.to(compute_dtype)
-            sg = xc @ params["shared_w_gate"].to(compute_dtype)
-            su = xc @ params["shared_w_up"].to(compute_dtype)
-            shared = (F.silu(sg) * su) @ params["shared_w_down"].to(compute_dtype)
-            if part is not None:
-                shared = part.once(shared)
-            out = out + shared.float()
 
-        stats = {
-            "dispatch_frac": F.one_hot(top_e[..., 0], E).float().mean(dim=(0, 1)),
-            "mean_prob": probs.mean(dim=(0, 1)),
-            "z_mean": torch.mean(torch.logsumexp(router_logits, dim=-1) ** 2),
-            "keep_mean": torch.mean(keep.float()),
-        }
-        return out.to(x.dtype), stats
+def _with_shared(out, x, params, compute_dtype, part):
+    """The routed output (f32) plus the shared expert's, in x's dtype."""
+    if "shared_w_gate" in params:
+        xc = x.to(compute_dtype)
+        sg = xc @ params["shared_w_gate"].to(compute_dtype)
+        su = xc @ params["shared_w_up"].to(compute_dtype)
+        shared = (F.silu(sg) * su) @ params["shared_w_down"].to(compute_dtype)
+        if part is not None:
+            shared = part.once(shared)
+        out = out + shared.float()
+    return out.to(x.dtype)
+
+
+def _stats(top_e, probs, router_logits, keep_mean, E: int) -> dict:
+    return {
+        "dispatch_frac": F.one_hot(top_e[..., 0], E).float().mean(dim=(0, 1)),
+        "mean_prob": probs.mean(dim=(0, 1)),
+        "z_mean": torch.mean(torch.logsumexp(router_logits, dim=-1) ** 2),
+        "keep_mean": keep_mean,
+    }
+
+
+def grouped_swiglu(xs: torch.Tensor, ends: torch.Tensor, w_gate, w_up, w_down,
+                   compute_dtype) -> torch.Tensor:
+    """Each expert's SwiGLU over its run of rows: ``xs`` [N, D] sorted by
+    expert, ``ends`` [E] the end offset of each expert's run; w_gate/w_up
+    [E, D, F], w_down [E, F, D].  On CUDA tensors three grouped products
+    (``torch._grouped_mm``); on CPU tensors a loop over the experts that
+    hold rows."""
+    wg, wu, wd = (w.to(compute_dtype) for w in (w_gate, w_up, w_down))
+    if xs.device.type == "cuda":
+        offs = ends.to(torch.int32)
+        g = torch._grouped_mm(xs, wg, offs=offs)
+        u = torch._grouped_mm(xs, wu, offs=offs)
+        return torch._grouped_mm(F.silu(g) * u, wd, offs=offs)
+    runs = torch.split(xs, (ends - F.pad(ends[:-1], (1, 0))).tolist())
+    return torch.cat([(F.silu(r @ wg[e]) * (r @ wu[e])) @ wd[e]
+                      for e, r in enumerate(runs) if r.shape[0]])
+
+
+def _dropless(x, params, top_e, top_p, compute_dtype) -> torch.Tensor:
+    """Every slot through its expert: [B, S, D] f32, the sum over each
+    token's k slots of probability times expert output.  Nothing here reads
+    the device from the host (the runs' ends come from a search of the
+    sorted experts, not from a count on the host)."""
+    B, S, D = x.shape
+    k, E = top_e.shape[-1], params["w_gate"].shape[0]
+    flat_e = top_e.reshape(-1)  # slot = token * k + rank
+    with record_function("moe_dispatch"):
+        sorted_e, order = torch.sort(flat_e, stable=True)
+        ends = torch.searchsorted(sorted_e, torch.arange(E, device=x.device), right=True)
+        xs = x.reshape(B * S, D).to(compute_dtype).index_select(0, order // k)
+    with record_function("moe_experts"):
+        ys = grouped_swiglu(xs, ends, params["w_gate"], params["w_up"],
+                            params["w_down"], compute_dtype)
+    with record_function("moe_dispatch"):
+        slots = torch.empty_like(ys).index_copy(0, order, ys)
+        weighted = slots.float() * top_p.reshape(-1, 1)
+        return weighted.reshape(B, S, k, D).sum(dim=2)
